@@ -1,0 +1,275 @@
+"""The S-RAPS simulation engine (paper §3.2.3), port of ``repro.core.engine``.
+
+Main loop per step (the paper's four steps), batched over scenarios:
+  (1) prepare     -- clear completed jobs, free their nodes, fold accounting;
+  (2) arrivals    -- move submitted jobs into the queue;
+  (3) schedule    -- policy sort + bounded admission (``scheduler``),
+                     thermally throttled when cooling loses its setpoint;
+  (4) tick        -- power model -> fused node->CDU->hall cooling step (the
+                     Hopper kernel on the card) -> conversion losses ->
+                     the rest of the plant -> telemetry row; advance time.
+
+The JAX engine scans one step function with ``lax.scan`` and batches
+scenarios with ``vmap``. Here every tensor of the state carries the
+scenario axis S and the scan is a Python loop over steps. This slice runs
+the no-grid, no-events, no-weather path; those layers are later slices.
+
+Entry points (``simulate``, ``simulate_static``, ``simulate_sweep``) run
+on ``device="cuda"`` unless the caller passes ``device="cpu"``; without a
+card a CUDA request raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.cooling import model as cooling
+from repro_torch.core import accounts as acct_mod
+from repro_torch.core import resource_manager as rm
+from repro_torch.core import scheduler as sched
+from repro_torch.core import types as T
+from repro_torch.power import losses as plosses
+from repro_torch.power import model as pmodel
+from repro_torch.systems.config import SystemConfig
+
+
+# ---------------------------------------------------------------------------
+# Initialization (paper §3.2.1 / §3.2.3 prepopulation + dismissal).
+# ---------------------------------------------------------------------------
+def init_state(system: SystemConfig, table: T.JobTable, t0: float,
+               t1: float, accounts: T.AccountStats | None = None,
+               num_accounts: int = 64) -> T.SimState:
+    """Initial engine state for the window ``[t0, t1]`` (seconds), on the
+    table's device and without the scenario axis (as the reference's).
+
+    Dismisses jobs entirely outside the window, prepopulates jobs already
+    running at ``t0`` per the telemetry, queues jobs submitted but not yet
+    started, and starts the cooling loop from its idle-plant condition.
+    """
+    dev = table.submit.device
+    J = table.num_jobs
+    rec_end = table.rec_start + table.wall
+    jstate = torch.full((J,), T.PENDING, dtype=torch.int32, device=dev)
+
+    # dismiss jobs entirely outside the window (paper Fig. 3 discussion)
+    dismissed = (~table.valid) | (rec_end <= t0) | (table.submit >= t1)
+    jstate = torch.where(dismissed, T.DISMISSED, jstate)
+    # prepopulate jobs running at t0 per the telemetry
+    running0 = (~dismissed) & (table.rec_start <= t0) & (rec_end > t0) & \
+        (table.first_node >= 0)
+    jstate = torch.where(running0, T.RUNNING, jstate)
+    # jobs already submitted but not yet started at t0 join the queue
+    queued0 = (~dismissed) & (~running0) & (table.submit <= t0)
+    jstate = torch.where(queued0, T.QUEUED, jstate)
+
+    start = torch.where(running0, table.rec_start, torch.inf)
+    end = torch.where(running0, rec_end, torch.inf)
+    node_job = rm.prepopulate(system.n_nodes, table.first_node, table.nodes,
+                              running0)
+    free_count = torch.sum(node_job == -1, dtype=torch.int32)
+    if accounts is None:
+        accounts = T.AccountStats.zeros(num_accounts, dev)
+    else:
+        accounts = T.tree_map(lambda x: x.to(dev, copy=True), accounts)
+    # prepopulated jobs ran unthrottled before the window: work-time
+    # progress equals their wall-clock elapsed at t0
+    progress = torch.where(running0,
+                           torch.clamp(t0 - table.rec_start, min=0.0), 0.0)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    return T.SimState(
+        t=f32(t0), step=torch.tensor(0, dtype=torch.int32, device=dev),
+        jstate=jstate, start=start, end=end, progress=progress,
+        jenergy=torch.zeros((J,), dtype=torch.float32, device=dev),
+        node_job=node_job, free_count=free_count, accounts=accounts,
+        cooling=cooling.init_state(system.cooling, dev),
+        energy_total=f32(0.0), energy_it=f32(0.0), energy_loss=f32(0.0),
+        completed=f32(0.0), emissions_kg=f32(0.0), energy_cost=f32(0.0),
+        energy_cooling=f32(0.0), heat_reuse_j=f32(0.0))
+
+
+# ---------------------------------------------------------------------------
+# Engine phases (every tensor batched over scenarios).
+# ---------------------------------------------------------------------------
+def _prepare_and_arrivals(system: SystemConfig, table: T.JobTable,
+                          st: T.SimState) -> T.SimState:
+    """Phases (1)+(2): completions, node release, accounting, arrivals."""
+    t = st.t[:, None]
+    done_now = (st.jstate == T.RUNNING) & (t >= st.end)
+    node_job = rm.release_done(st.node_job, done_now)
+    freed = torch.sum(torch.where(done_now, table.nodes, 0), 1,
+                      dtype=torch.int32)
+    jstate = torch.where(done_now, T.DONE, st.jstate)
+    accounts = acct_mod.fold_completions(system, table, st.accounts, done_now,
+                                         st.start, st.end, st.jenergy)
+    jstate = torch.where((jstate == T.PENDING) & (table.submit <= t),
+                         T.QUEUED, jstate)
+    return dataclasses.replace(
+        st, jstate=jstate, node_job=node_job,
+        free_count=st.free_count + freed, accounts=accounts,
+        completed=st.completed + torch.sum(done_now, 1))
+
+
+def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
+          thermal: cooling.ThermalNow, setpoint_delta_c, cells_offline
+          ) -> Tuple[T.SimState, dict]:
+    """Phase (4) without the grid layer: physics + accounting + telemetry.
+
+    The node->CDU segment reduction fuses with the cooling-loop update
+    (``cooling.step_from_node_power``); total IT power falls out of the
+    hall sums. Returns the new state and this step's varying telemetry
+    (``_history`` adds the rows that are constant on this path).
+    """
+    dt = system.dt
+    job_pw = pmodel.job_node_power_elapsed(table, st.jstate, st.progress,
+                                           system.prof_dt)
+    node_pw = pmodel.node_power(system, table, st.node_job, job_pw)
+    running = st.jstate == T.RUNNING
+    cool_state, cool, p_it = cooling.step_from_node_power(
+        system.cooling, st.cooling, node_pw, dt, setpoint_delta_c,
+        cells_offline)
+    n_racks = max(system.n_nodes // system.power.nodes_per_rack, 1)
+    p_in, p_loss = plosses.conversion(system.power, p_it, float(n_racks))
+    p_cool = cool.p_cooling
+    p_total = p_in + p_cool
+
+    job_e_step = torch.where(running,
+                             job_pw * table.nodes.to(torch.float32) * dt, 0.0)
+    busy = float(system.n_nodes) - st.free_count.to(torch.float32)
+    rec = dict(
+        t=st.t, power_it=p_it, power_loss=p_loss, power_cooling=p_cool,
+        power_total=p_total, pue=cooling.pue(p_it, p_loss, p_cool),
+        t_tower_return=cool.t_tower_return,
+        util=busy / system.n_nodes,
+        n_queued=torch.sum(st.jstate == T.QUEUED, 1).to(torch.float32),
+        n_running=torch.sum(running, 1).to(torch.float32),
+        power_fan=cool.p_fan, power_pump=cool.p_pump,
+        q_reuse_w=cool.q_reuse_w, t_basin=cool.t_basin,
+        t_supply_max=cool.t_supply_max,
+        thermal_throttled=thermal.overheat.to(torch.float32),
+        # the hall heat sums ARE the per-hall IT power
+        power_it_hall=cool.q_hall_w, t_basin_hall=cool.t_basin_hall,
+        t_supply_max_hall=cool.t_supply_max_hall,
+        t_wetbulb_hall=cool.t_wetbulb_hall, cells_online=cool.cells_online,
+        overheat_hall=thermal.overheat_hall.to(torch.float32))
+    new = dataclasses.replace(
+        st, t=st.t + dt, step=st.step + 1,
+        progress=st.progress + torch.where(running, dt, 0.0),
+        jenergy=st.jenergy + job_e_step, cooling=cool_state,
+        energy_total=st.energy_total + p_total * dt,
+        energy_it=st.energy_it + p_it * dt,
+        energy_loss=st.energy_loss + p_loss * dt,
+        energy_cooling=st.energy_cooling + p_cool * dt,
+        heat_reuse_j=st.heat_reuse_j + cool.q_reuse_w * dt)
+    return new, rec
+
+
+def engine_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
+                scen: T.Scenario, backfills: tuple[int, ...] | None = None
+                ) -> Tuple[T.SimState, dict]:
+    """One engine step, phases (1)-(4), for a batch of scenarios (no grid
+    signals, no weather trace, no event layer). ``backfills``: see
+    ``scheduler.schedule_step``."""
+    st = _prepare_and_arrivals(system, table, st)
+    # cooling-pressure signals for the thermal_aware policy + admission gate
+    thermal = cooling.thermal_now(system.cooling, st.cooling,
+                                  scen.setpoint_delta_c)
+    st = sched.schedule_step(system, table, st, scen, thermal=thermal,
+                             backfills=backfills)
+    return _tick(system, table, st, thermal, scen.setpoint_delta_c,
+                 scen.cells_offline)
+
+
+# ---------------------------------------------------------------------------
+# Full simulation.
+# ---------------------------------------------------------------------------
+def _history(system: SystemConfig, rows: list[dict]) -> T.StepRecord:
+    """Stack per-step rows into f32[S, T] (f32[S, T, H]) telemetry, adding
+    the rows that are constant without the grid and event layers."""
+    cols = {k: torch.stack([r[k] for r in rows], 1) for k in rows[0]}
+    z = torch.zeros_like(cols["t"])
+    return T.StepRecord(
+        **cols, emissions_kg=z, energy_cost=z.clone(),
+        cap_w=torch.full_like(z, torch.inf), throttle_frac=z.clone(),
+        t_wetbulb=torch.full_like(z, system.cooling.t_wetbulb_c),
+        nodes_down=z.clone(), n_killed=z.clone())
+
+
+def _device(device) -> torch.device:
+    """The device an entry point runs on: never the CPU unless asked for,
+    so a CUDA request without a card raises instead of carrying on."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch: no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
+    return dev
+
+
+def _run(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
+         t0: float, t1: float, accounts, num_accounts: int, device
+         ) -> Tuple[T.SimState, T.StepRecord]:
+    """Scan the batched engine step from ``init_state`` over [t0, t1)."""
+    dev = _device(device)
+    n_steps = int(round((t1 - t0) / system.dt))
+    backfills = tuple(sorted(set(scen.backfill.tolist())))
+    table = table.to(dev)
+    scen = T.tree_map(lambda x: x.to(dev), scen)
+    S = scen.policy.shape[0]
+    st0 = init_state(system, table, t0, t1, accounts, num_accounts)
+    st = T.tree_map(lambda x: x.unsqueeze(0).repeat(S, *([1] * x.ndim)), st0)
+    rows = []
+    for _ in range(n_steps):
+        st, rec = engine_step(system, table, st, scen, backfills)
+        rows.append(rec)
+    return st, _history(system, rows)
+
+
+def simulate(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
+             t0: float, t1: float, accounts: T.AccountStats | None = None,
+             num_accounts: int = 64, device="cuda"
+             ) -> Tuple[T.SimState, T.StepRecord]:
+    """Run the twin for one scenario from ``t0`` to ``t1`` (seconds).
+
+    Args:
+      system: static machine description.
+      table: padded job table (times s, power W).
+      scen: one scenario's knobs (``Scenario.make``).
+      t0, t1: simulation window (s); ``round((t1 - t0) / dt)`` steps run.
+      accounts: optional warm-start per-account ledgers ([A]).
+      num_accounts: ledger size when ``accounts`` is None.
+      device: where to run; ``"cpu"`` only when asked for.
+    Returns:
+      (final SimState, StepRecord history f32[T] per field), without the
+      scenario axis.
+    """
+    final, hist = _run(system, table, T.stack_scenarios([scen]), t0, t1,
+                       accounts, num_accounts, device)
+    return T.row(final, 0), T.row(hist, 0)
+
+
+def simulate_static(system: SystemConfig, table: T.JobTable, policy: str,
+                    backfill: str, t0: float, t1: float,
+                    accounts: T.AccountStats | None = None,
+                    num_accounts: int = 64, device="cuda"):
+    """Single scenario named by policy and backfill, every other knob at
+    its neutral default. A batch of one runs the sweep's arithmetic row
+    for row, and a batch without EASY skips the reservation machinery,
+    as the reference's static fast path does."""
+    return simulate(system, table, T.Scenario.make(policy, backfill), t0, t1,
+                    accounts, num_accounts, device)
+
+
+def simulate_sweep(system: SystemConfig, table: T.JobTable,
+                   scens: list[T.Scenario], t0: float, t1: float,
+                   accounts: T.AccountStats | None = None,
+                   num_accounts: int = 64, device="cuda"
+                   ) -> Tuple[T.SimState, T.StepRecord]:
+    """What-if sweep: S scenarios advance together, one batched step at a
+    time (no Python loop over scenarios). The job table and initial state
+    are shared; the scenario knobs ride the S axis.
+
+    Returns (final SimState [S, ...], StepRecord [S, T, ...]).
+    """
+    return _run(system, table, T.stack_scenarios(list(scens)), t0, t1,
+                accounts, num_accounts, device)

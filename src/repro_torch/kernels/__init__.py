@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels, one package per JAX Pallas kernel family.
+
+``LAUNCHES`` counts each kernel's launches: a wrapper adds one exactly
+where it launches its kernel, so a run can show that its path went
+through the kernel (``chip_smoke.py`` zeroes the counts before the main
+path and reads them after).
+"""
+LAUNCHES: dict[str, int] = {"fused_cooling": 0}

@@ -1,0 +1,78 @@
+"""Wrappers for the power-topology kernels: what the engine calls.
+
+A CUDA tensor goes through the Hopper kernel (``power_topo``); a CPU
+tensor goes through the plain version (``ref``). The choice follows the
+tensor's device and nothing else: there is no fallback from one to the
+other.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels.power_topo import power_topo
+from repro_torch.kernels.power_topo.ref import (CduParams, fused_cooling_ref,
+                                                hall_power_ref)
+
+
+def fused_cooling(node_pw: torch.Tensor, t_supply: torch.Tensor,
+                  mdot: torch.Tensor, t_basin: torch.Tensor,
+                  t_set: torch.Tensor, n_groups: int, params: CduParams):
+    """Fused per-step cooling update: per-CDU heat + loop state in one pass.
+
+    Args:
+      node_pw: f32[S, N] per-node power (W).
+      t_supply, mdot: f32[S, G] CDU supply temps (°C), flows (kg/s).
+      t_basin, t_set: basin temp and effective setpoint (°C), f32[S] (one
+        value per scenario, shared by its groups) or f32[S, G].
+      n_groups: number of CDU groups G.
+      params: static CduParams scalars.
+    Returns:
+      (q, t_return, t_supply_new, mdot_new), each f32[S, G].
+    """
+    if node_pw.device.type == "cpu":
+        return fused_cooling_ref(node_pw, t_supply, mdot, t_basin, t_set,
+                                 n_groups, params)
+    S = node_pw.shape[0]
+    col = lambda a: (a[:, None] if a.ndim == 1 else a).expand(S, n_groups)
+    return power_topo.fused_cooling_cuda(node_pw, t_supply, mdot,
+                                         col(t_basin), col(t_set), n_groups,
+                                         params)
+
+
+def hall_power(group_q: torch.Tensor, hall_of_group,
+               n_halls: int) -> torch.Tensor:
+    """f32[S, G] -> f32[S, H]: the hall level of the node -> CDU -> hall
+    reduction. G and H are both tiny (tens), so it stays a one-hot
+    product, as the JAX package leaves it to XLA."""
+    return hall_power_ref(group_q, hall_of_group, n_halls)
+
+
+@functools.lru_cache(maxsize=32)
+def _hog(hall_of_group: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(hall_of_group, dtype=torch.int64, device=device)
+
+
+def fused_cooling_hier(node_pw: torch.Tensor, t_supply: torch.Tensor,
+                       mdot: torch.Tensor, t_basin_hall: torch.Tensor,
+                       t_set: torch.Tensor, hall_of_group, n_groups: int,
+                       params: CduParams):
+    """Hierarchical fused cooling update: node -> CDU -> hall reduction +
+    per-CDU loop update against each group's hall basin.
+
+    Args:
+      node_pw: f32[S, N] per-node power (W).
+      t_supply, mdot: f32[S, G] CDU loop state.
+      t_basin_hall: f32[S, H] per-hall basin temperatures (°C).
+      t_set: f32[S] effective supply setpoint (°C).
+      hall_of_group: static hall index per CDU group (length G).
+    Returns:
+      (q, t_return, t_supply_new, mdot_new, q_hall): per-group pieces
+      f32[S, G] plus per-hall heat sums f32[S, H].
+    """
+    hog = tuple(int(h) for h in hall_of_group)
+    t_basin_g = t_basin_hall[..., _hog(hog, node_pw.device)]
+    q, t_ret, t_sup, md = fused_cooling(node_pw, t_supply, mdot, t_basin_g,
+                                        t_set, n_groups, params)
+    return q, t_ret, t_sup, md, hall_power(q, hog, t_basin_hall.shape[-1])

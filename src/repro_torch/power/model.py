@@ -1,0 +1,49 @@
+"""Utilization -> electrical power (paper §3.1), port of ``repro.power.model``.
+
+Per-node IT power comes from the job's recorded per-node power trace
+(trace datasets: Frontier, Marconi100) with last-observation-carried-
+forward for missing samples, or from a scalar per-job average (summary
+datasets: Fugaku, Lassen, Adastra). Idle nodes draw ``idle_node_w``.
+Batched over scenarios: per-job tensors are [S, J], per-node [S, N].
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import types as T
+from repro_torch.core.types import JobTable
+from repro_torch.systems.config import SystemConfig
+
+
+def job_node_power_elapsed(table: JobTable, jstate: torch.Tensor,
+                           elapsed: torch.Tensor,
+                           prof_dt: float) -> torch.Tensor:
+    """Per-node power (W) of each job ``elapsed`` work-seconds into its run
+    -> f32[S, J].
+
+    LOCF semantics (paper §3.2.2): the profile index is clamped into
+    [0, P-1]. The index truncates toward zero like the reference's
+    ``astype(int32)``.
+    """
+    S, J = jstate.shape
+    P = table.prof_len
+    idx = torch.clamp((elapsed / prof_dt).to(torch.int32), 0, P - 1)
+    p = torch.gather(table.power_prof.expand(S, J, P), 2,
+                     idx.long().unsqueeze(-1)).squeeze(-1)
+    return torch.where(jstate == T.RUNNING, p, 0.0)
+
+
+def node_power(system: SystemConfig, table: JobTable, node_job: torch.Tensor,
+               job_pw: torch.Tensor) -> torch.Tensor:
+    """Map per-job power f32[S, J] onto the node axis -> f32[S, N] (W).
+
+    ``node_job[s, n]`` is the occupying job id (or -1). Free nodes draw
+    idle power.
+    """
+    p = torch.gather(job_pw, 1, node_job.clamp(min=0).long())
+    return torch.where(node_job >= 0, p, system.power.idle_node_w)
+
+
+def system_it_power(node_pw: torch.Tensor) -> torch.Tensor:
+    """Total IT power per scenario (W): f32[S, N] -> f32[S]."""
+    return node_pw.sum(-1)

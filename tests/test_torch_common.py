@@ -1,0 +1,162 @@
+"""Shared pieces of the PyTorch-port parity tests, and the port's guards.
+
+The other ``test_torch_*.py`` files import the helpers below (pytest puts
+this directory on ``sys.path``). Inputs are made with numpy from a seed
+and handed to both packages as numpy arrays; the JAX package runs on the
+CPU as its own tests run it. Nothing here flips a global JAX, torch or
+environment setting except torch's intra-op thread count, which each
+port test file pins to 1 so that several test workers do not oversubscribe
+the machine's cores.
+"""
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from repro.systems import config as jcfg  # noqa: E402
+from repro_torch.core import engine as teng  # noqa: E402
+from repro_torch.core import types as TT  # noqa: E402
+from repro_torch.launch import simulate as tcli  # noqa: E402
+from repro_torch.kernels.power_topo import power_topo  # noqa: E402
+from repro_torch.systems import config as tcfg  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+# ---------------------------------------------------------------------------
+# Helpers shared by the parity files.
+# ---------------------------------------------------------------------------
+def to_port(obj):
+    """The port's copy of a JAX-package config dataclass (same values)."""
+    if dataclasses.is_dataclass(obj):
+        cls = getattr(tcfg, type(obj).__name__)
+        return cls(**{f.name: to_port(getattr(obj, f.name))
+                      for f in dataclasses.fields(obj)})
+    return obj
+
+
+def leaves(obj):
+    """A JAX dataclass as a (nested) mapping of numpy arrays by field
+    name, the input of the port's ``from_arrays``."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = leaves(v)
+        else:
+            out[f.name] = None if v is None else np.asarray(v)
+    return out
+
+
+def as_np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def assert_exact(want, got, what=""):
+    """Same dtype, same shape, same values (NaN == NaN)."""
+    want, got = np.asarray(want), as_np(got)
+    assert want.dtype == got.dtype, f"{what}: {want.dtype} != {got.dtype}"
+    assert want.shape == got.shape, f"{what}: {want.shape} != {got.shape}"
+    floating = np.issubdtype(want.dtype, np.floating)
+    assert np.array_equal(want, got, equal_nan=floating), \
+        f"{what}: differs at {np.argwhere(want != got)[:5].tolist()}"
+
+
+def four_hall(system):
+    """``system`` with a 4-hall plant of 4 CDU groups and 4 tower cells,
+    sized tight (small towers, a low return limit and supply margin) so
+    that hall pressure, the hall-aware placement order and the per-hall
+    admission gate all come into play within a short run."""
+    return dataclasses.replace(system, cooling=dataclasses.replace(
+        system.cooling, n_groups=4, n_tower_cells=4, cell_rated_heat_w=5e4,
+        fan_rated_w=2e3, t_return_limit_c=34.0, thermal_margin_c=4.0,
+        t_supply_margin_c=4.0, topology=jcfg.FacilityTopology(n_halls=4)))
+
+
+# ---------------------------------------------------------------------------
+# Guards.
+# ---------------------------------------------------------------------------
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_system_configs_are_copies():
+    for name, system in jcfg.SYSTEMS.items():
+        assert to_port(system) == tcfg.get_system(name), name
+    js = jcfg.get_system("frontier").scaled(96)
+    assert to_port(js) == tcfg.get_system("frontier").scaled(96)
+
+
+def test_entry_point_without_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    system = tcfg.get_system("marconi100").scaled(64)
+    table = TT.JobTable.from_arrays({
+        "submit": np.zeros(2, np.float32), "limit": np.ones(2, np.float32),
+        "wall": np.ones(2, np.float32), "nodes": np.ones(2, np.int32),
+        "priority": np.zeros(2, np.float32), "account": np.zeros(2, np.int32),
+        "rec_start": np.zeros(2, np.float32),
+        "first_node": np.full(2, -1, np.int32),
+        "score": np.zeros(2, np.float32),
+        "power_prof": np.ones((2, 1), np.float32),
+        "util_prof": np.ones((2, 1), np.float32),
+        "valid": np.ones(2, bool)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teng.simulate_static(system, table, "fcfs", "none", 0.0, 60.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teng.simulate_sweep(system, table, [TT.Scenario.make("fcfs")],
+                            0.0, 60.0)
+
+
+def test_kernel_wrapper_rejects_bad_inputs():
+    """The CUDA wrapper validates type and shape before anything else, and
+    never takes a CPU tensor (the CPU path is the plain version)."""
+    p = tcfg.get_system("frontier").cooling
+    from repro_torch.cooling import model as tcool
+    params = tcool.cdu_params(p, 15.0)
+    S, N, G = 2, 40, 4
+    good = dict(node_pw=torch.ones(S, N), t_supply=torch.ones(S, G),
+                mdot=torch.ones(S, G), t_basin=torch.ones(S, G),
+                t_set=torch.ones(S, G))
+    for name, bad, match in [
+            ("node_pw", torch.ones(S, N, dtype=torch.float64), "float32"),
+            ("mdot", torch.ones(S, G, dtype=torch.float16), "float32"),
+            ("node_pw", torch.ones(N), "shape"),
+            ("t_supply", torch.ones(S, G + 1), "shape"),
+            ("t_set", torch.ones(S + 1, G), "shape"),
+            ("t_basin", torch.ones(S, G), "CUDA")]:
+        kw = dict(good, **{name: bad})
+        with pytest.raises(ValueError, match=match):
+            power_topo.fused_cooling_cuda(**kw, n_groups=G, p=params)
+
+
+def test_cli_runs_on_the_cpu(capsys):
+    tcli.main(["--system", "marconi100", "--scale", "64", "--jobs", "40",
+               "-t", "20m", "--device", "cpu", "--sweep", "fcfs:easy",
+               "sjf"])
+    out = capsys.readouterr().out
+    assert out.count("avg_pue") == 2 and "policy=sjf backfill=none" in out
+    tcli.main(["--system", "marconi100", "--scale", "64", "--jobs", "40",
+               "-t", "10m", "--device", "cpu", "--policy", "fcfs"])
+    assert "policy=fcfs backfill=none on cpu" in capsys.readouterr().out
