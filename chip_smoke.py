@@ -2,20 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds every Hopper kernel of the port's main path from the sources in
-this checkout, holds each against its plain PyTorch version on the card,
-times it, then drives the main path (the Frontier scenario sweep at full
-width: 9,600 nodes, 25 CDU groups, 1,238 jobs, 6 h = 1,440 steps, 8
-scenarios) through ``repro_torch.core.engine`` and checks what comes out.
-Any failed phase exits non-zero; nothing is caught and passed over. The
-last line is the JSON device record; the line before it lists the
-kernels with their launches, errors and times.
+Builds every Hopper kernel of the port from the sources in this checkout
+(one ``nvcc`` per source, all at once), holds each against its plain
+PyTorch version on the card and times it, then drives the port's two
+paths through ``repro_torch.core.engine`` at full width and checks what
+comes out:
+
+* the no-grid Frontier scenario sweep (9,600 nodes, 25 CDU groups, 1,238
+  jobs, 6 h = 1,440 steps, 8 scenarios), which runs the fused cooling
+  kernel once a step;
+* ``frontier-grid-6h``, the grid path: the same machine and backlog
+  under synthetic carbon, price and power-cap signals (the evening cap
+  dip in the last 3 h), 12 (cap level x policy x weight) scenarios, which
+  runs the group-power kernel once a step;
+
+and a small card-against-CPU check of each path. Any failed phase exits
+non-zero; nothing is caught and passed over. The last line is the JSON
+device record; the line before it lists the kernels with their
+launches, errors and times.
 
 Exits non-zero without printing a result when no CUDA card is visible,
 or when the ``src/repro_torch`` package is not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -38,6 +49,7 @@ from repro_torch.core import types as T  # noqa: E402
 from repro_torch.cooling import model as cooling  # noqa: E402
 from repro_torch.datasets import loaders  # noqa: E402
 from repro_torch.datasets.synthetic import WorkloadSpec, generate  # noqa: E402
+from repro_torch.grid import signals as gsig  # noqa: E402
 from repro_torch.kernels.power_topo import ops as topo_ops  # noqa: E402
 from repro_torch.kernels.power_topo import power_topo  # noqa: E402
 from repro_torch.kernels.power_topo import ref as topo_ref  # noqa: E402
@@ -48,11 +60,23 @@ DEV = torch.device("cuda")
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 F32_FLOP_S = 67e12           # H100 SXM float32 rate outside tensor cores
 KERNEL_TOL = 1e-4            # rtol = atol: the reference's own kernel bound
+GROUP_RTOL, GROUP_ATOL = 1e-5, 1e-3   # group sums: the reference's rtol, 1 mW
 SWEEP = [("fcfs", "easy"), ("fcfs", "none"), ("sjf", "first-fit"),
          ("ljf", "easy"), ("priority", "first-fit"),
          ("acct_fugaku_pts", "easy"), ("thermal_aware", "easy"),
          ("replay", "none")]
 FRONTIER_T1 = 6 * 3600.0     # the CLI's default window
+# frontier-grid-6h: benchmarks/fig_carbon.py's cap levels and carbon
+# weights under first-fit, plus price_aware and two EASY rows
+CAP_SCALES = [1.0, 0.85, 0.7]
+CARBON_WEIGHTS = [0.0, 2.0, 8.0]
+GRID_SWEEP = [("fcfs" if w == 0.0 else "carbon_aware", "first-fit",
+               dict(carbon_weight=w, cap_scale=cs))
+              for cs in CAP_SCALES for w in CARBON_WEIGHTS] + [
+    ("price_aware", "first-fit", dict(price_weight=4.0, cap_scale=0.85)),
+    ("fcfs", "easy", dict(cap_scale=0.7)),
+    ("carbon_aware", "easy", dict(carbon_weight=2.0, cap_scale=0.7))]
+GRID_T0_CLOCK = 14 * 3600.0  # signal clock 14:00-20:00: the 17-21 h dip
 
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -129,14 +153,19 @@ def check_kernel(label, sysc, S, N, G, H, seed):
           f"max_abs_err={err!r} (rtol=atol={KERNEL_TOL})")
     return err
 
-def kernel_phase(card):
+def build_phase():
+    """Build every kernel from source, one nvcc per source, all at once."""
     t = time.perf_counter()
-    lib = power_topo.build()
-    print(f"build: {lib.name} in {time.perf_counter() - t:.2f} s "
-          f"(nvcc {' '.join(power_topo.NVCC_FLAGS)})")
-    for line in power_topo.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    libs = power_topo.build(*power_topo.SOURCES)
+    print(f"build: {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t:.2f} s (nvcc "
+          f"{' '.join(power_topo.NVCC_FLAGS)})")
+    for name, log in power_topo.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
+
+def kernel_phase(card):
     fr, fu = get_system("frontier"), get_system("fugaku")
     err = check_kernel("frontier", fr, 8, 9600, 25, 1, 1)
     check_kernel("frontier-5halls", fr, 8, 9600, 25, 5, 2)
@@ -173,6 +202,73 @@ def kernel_phase(card):
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
+def check_group_kernel(label, S, N, G, idle, seed):
+    """Both modes of the group-power kernel against their plain versions
+    at one shape; returns the max abs error. Node powers lie on both sides
+    of the idle floor."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = 4.5 * idle * torch.rand((S, N), generator=g, device=DEV)
+    got = topo_ops.group_power(x, G)
+    torch.cuda.synchronize()
+    got_floor, got_dyn = topo_ops.group_power_split(x, idle, G)
+    torch.cuda.synchronize()
+    want = topo_ref.group_power_ref(x, G)
+    want_floor, want_dyn = topo_ref.group_power_split_ref(x, idle, G)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in (("plain", got, want), ("floor", got_floor, want_floor),
+                       ("dyn", got_dyn, want_dyn)):
+        if a.shape != (S, G) or not torch.isfinite(a).all():
+            raise SystemExit(f"group_power {label}: {name} bad output")
+        torch.testing.assert_close(a, b, rtol=GROUP_RTOL, atol=GROUP_ATOL,
+                                   msg=lambda m: f"{label} {name}: {m}")
+        err = max(err, float((a - b).abs().max()))
+    print(f"kernel group_power {label} S={S} N={N} G={G} (plain and split): "
+          f"max_abs_err={err!r} (rtol={GROUP_RTOL}, atol={GROUP_ATOL} W)")
+    return err
+
+def group_kernel_phase(card):
+    fr, fu = get_system("frontier"), get_system("fugaku")
+    idle = fr.power.idle_node_w
+    err = check_group_kernel("frontier", 12, 9600, 25, idle, 11)
+    check_group_kernel("fugaku", 8, 158976, 32, fu.power.idle_node_w, 12)
+    check_group_kernel("ragged", 12, 9601, 25, idle, 13)
+
+    # timing at the grid sweep's shape in the mode it runs (split)
+    S, N, G = len(GRID_SWEEP), fr.n_nodes, fr.cooling.n_groups
+    g = torch.Generator(device=DEV).manual_seed(14)
+    x = 4.5 * idle * torch.rand((S, N), generator=g, device=DEV)
+    kernel = lambda: topo_ops.group_power_split(x, idle, G)
+    plain = lambda: topo_ref.group_power_split_ref(x, idle, G)
+    view = x.view(S, G, N // G)
+
+    def library():
+        # yardstick only (the port never calls it): clamp, subtract and
+        # two library reductions over the same spans
+        f = torch.clamp(view, max=idle)
+        return f.sum(-1), (view - f).sum(-1)
+
+    ms, plain_ms, lib_ms = graph_ms(kernel), graph_ms(plain), graph_ms(library)
+    plain_mode_ms = graph_ms(lambda: topo_ops.group_power(x, G))
+    eager = {name: cuda_ms(f) for name, f in
+             (("kernel", kernel), ("plain", plain), ("library", library))}
+    n_bytes = 4 * (S * N + 2 * S * G)       # node powers once, two outputs
+    n_ops = 4 * S * N                       # min, subtract, two adds a node
+    bound_ms = max(n_bytes / HBM_BYTES_S, n_ops / F32_FLOP_S) * 1e3
+    bound_by = "bytes" if n_bytes / HBM_BYTES_S >= n_ops / F32_FLOP_S \
+        else "operations"
+    print(f"[{card}] group_power split S={S} N={N} G={G} on the card (CUDA "
+          f"graph): kernel {ms!r} ms, plain {plain_ms!r} ms, library "
+          f"{lib_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: {n_bytes} B, "
+          f"{n_ops} ops); plain mode {plain_mode_ms!r} ms")
+    print(f"[{card}] group_power per eager call, host included: "
+          + ", ".join(f"{k} {v!r} ms" for k, v in eager.items()))
+    return dict(name="group_power", route="cuda",
+                source="src/repro_torch/kernels/power_topo/csrc/group_power.cu",
+                replaces="src/repro/kernels/power_topo/power_topo.py:45",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
 def frontier_case():
     system = get_system("frontier")
     js = loaders.load_frontier(n_jobs=1238)
@@ -193,56 +289,40 @@ def check_run(label, final, hist, n_steps, S):
         if not torch.isfinite(getattr(hist, name)).all():
             raise SystemExit(f"{label}: non-finite {name}")
 
-def main_path(card, entry):
-    system, table = frontier_case()
-    scens = [T.Scenario.make(p, b) for p, b in SWEEP]
-    n_steps = int(round(FRONTIER_T1 / system.dt))
-    S = len(scens)
-    print(f"main path: frontier N={system.n_nodes} G={system.cooling.n_groups} "
-          f"J={table.num_jobs} steps={n_steps} S={S}")
-
+def run_counted(run):
+    """Zero every kernel's launch count, run, and return (result, wall
+    seconds, the counts of this run)."""
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
-    finals, hists = eng.simulate_sweep(system, table, scens, 0.0, FRONTIER_T1)
+    out = run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = dict(kernels.LAUNCHES)
-    print(f"[{card}] sweep: {n_steps} steps x {S} scenarios in {wall!r} s = "
-          f"{n_steps / wall!r} steps/s, launches {launches}")
-    if launches["fused_cooling"] != n_steps:
-        raise SystemExit(f"fused_cooling launched {launches['fused_cooling']}"
-                         f" times in {n_steps} steps")
-    entry["launches"] = launches["fused_cooling"]
-    check_run("sweep", finals, hists, n_steps, S)
-    for i, (p, b) in enumerate(SWEEP):
-        s = stats_mod.summarize(system, table, T.row(finals, i),
-                                T.row(hists, i))
-        print(f"  {p}:{b}: jobs_completed={s['jobs_completed']:.0f} "
-              f"avg_util={s['avg_util']:.4f} avg_pue={s['avg_pue']:.5f} "
-              f"avg_wait_s={s['avg_wait_s']:.1f} "
-              f"t_tower_return_max_c={s['t_tower_return_max_c']:.3f}")
+    return out, time.perf_counter() - t, dict(kernels.LAUNCHES)
 
-    # row 0 against a solo run of the same scenario
-    solo_f, solo_h = eng.simulate_static(system, table, *SWEEP[0], 0.0,
-                                         FRONTIER_T1)
+def check_row_vs_solo(label, finals, hists, solo):
+    """Sweep row 0 against a solo run of the same scenario: schedules
+    exactly, float series at rtol 1e-6. Returns whether bit-identical."""
+    solo_f, solo_h = solo
     row_f, row_h = T.row(finals, 0), T.row(hists, 0)
     for name in ("jstate", "start", "end", "node_job"):
         if not torch.equal(getattr(solo_f, name), getattr(row_f, name)):
-            raise SystemExit(f"sweep row 0 and the solo run disagree on "
-                             f"{name}")
+            raise SystemExit(f"{label}: sweep row 0 and the solo run "
+                             f"disagree on {name}")
     identical = True
     for name, a in vars(solo_h).items():
         b = getattr(row_h, name)
         torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0,
-                                   msg=lambda m: f"solo vs row 0 {name}: {m}")
+                                   msg=lambda m: f"{label} solo vs row 0 "
+                                   f"{name}: {m}")
         identical &= torch.equal(a, b)
-    print(f"sweep row 0 vs solo simulate_static: schedules equal, float "
-          f"series within rtol 1e-6, bit-identical={identical}")
+    print(f"{label}: sweep row 0 vs solo run: schedules equal, float series "
+          f"within rtol 1e-6, bit-identical={identical}")
+    return identical
 
-    # where a step's time goes: the same sweep with the card synchronised
-    # around each admission loop and each step
+def admission_share(run):
+    """(seconds in the admission loop, seconds in all) of ``run`` with the
+    card synchronised around each admission loop."""
     spent = {"admit": 0.0}
     admit = sched._admit
 
@@ -258,54 +338,193 @@ def main_path(card, entry):
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        eng.simulate_sweep(system, table, scens, 0.0, FRONTIER_T1)
+        run()
         torch.cuda.synchronize()
         total = time.perf_counter() - t
     finally:
         sched._admit = admit
-    print(f"[{card}] admission loop: {spent['admit']!r} s of {total!r} s "
-          f"= {spent['admit'] / total!r} of step time (synchronised run)")
+    return spent["admit"], total
+
+def main_path(card, entry):
+    """The no-grid Frontier sweep: one fused_cooling launch a step."""
+    system, table = frontier_case()
+    scens = [T.Scenario.make(p, b) for p, b in SWEEP]
+    n_steps = int(round(FRONTIER_T1 / system.dt))
+    S = len(scens)
+    print(f"main path: frontier N={system.n_nodes} G={system.cooling.n_groups} "
+          f"J={table.num_jobs} steps={n_steps} S={S}")
+    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, FRONTIER_T1)
+    (finals, hists), wall, launches = run_counted(run)
+    print(f"[{card}] sweep: {n_steps} steps x {S} scenarios in {wall!r} s = "
+          f"{n_steps / wall!r} steps/s, launches {launches}")
+    if launches["fused_cooling"] != n_steps or launches["group_power"] != 0:
+        raise SystemExit(f"no-grid sweep of {n_steps} steps launched "
+                         f"{launches}")
+    entry["launches"] = launches["fused_cooling"]
+    check_run("sweep", finals, hists, n_steps, S)
+    for i, (p, b) in enumerate(SWEEP):
+        s = stats_mod.summarize(system, table, T.row(finals, i),
+                                T.row(hists, i))
+        print(f"  {p}:{b}: jobs_completed={s['jobs_completed']:.0f} "
+              f"avg_util={s['avg_util']:.4f} avg_pue={s['avg_pue']:.5f} "
+              f"avg_wait_s={s['avg_wait_s']:.1f} "
+              f"t_tower_return_max_c={s['t_tower_return_max_c']:.3f}")
+    check_row_vs_solo("no-grid sweep", finals, hists, eng.simulate_static(
+        system, table, *SWEEP[0], 0.0, FRONTIER_T1))
+    admit_s, total = admission_share(run)
+    print(f"[{card}] admission loop: {admit_s!r} s of {total!r} s "
+          f"= {admit_s / total!r} of step time (synchronised run)")
     print(f"[{card}] fused_cooling total on the main path: "
           f"{entry['ms'] * n_steps!r} ms on the card ({n_steps} launches x "
           f"{entry['ms']!r} ms) of {wall * 1e3!r} ms")
 
-def small_reference():
-    """The card's engine (with the kernel) against the port's CPU engine
-    (plain versions) on a small input: schedules exactly, floats at 1e-4."""
+def grid_case():
+    """frontier-grid-6h: Frontier with benchmarks/fig_carbon.py's DVFS
+    floor, the 1,238-job day, and fig_carbon's signals on a clock that
+    runs 14:00-20:00, so the evening cap dip covers the last 3 h."""
+    system, table = frontier_case()
+    system = dataclasses.replace(system, grid=dataclasses.replace(
+        system.grid, c_min=0.05))
+    n_steps = int(round(FRONTIER_T1 / system.dt))
+    peak_it = system.n_nodes * system.power.peak_node_w
+    sig = gsig.synthetic_signals(system.grid, n_steps, system.dt,
+                                 t0=GRID_T0_CLOCK, seed=11,
+                                 cap_base_w=0.9 * peak_it,
+                                 cap_peak_w=0.55 * peak_it)
+    return system, table, sig, n_steps
+
+def grid_path(card, entry):
+    """The grid Frontier sweep: one group_power launch a step, no
+    fused_cooling."""
+    system, table, sig, n_steps = grid_case()
+    scens = [T.Scenario.make(p, b, **kw) for p, b, kw in GRID_SWEEP]
+    S = len(scens)
+    print(f"grid path frontier-grid-6h: N={system.n_nodes} "
+          f"G={system.cooling.n_groups} J={table.num_jobs} steps={n_steps} "
+          f"S={S} c_min={system.grid.c_min} cap {float(sig.cap_w.max())!r}"
+          f"..{float(sig.cap_w.min())!r} W before cap_scale")
+    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, FRONTIER_T1,
+                                     signals=sig)
+    (finals, hists), wall, launches = run_counted(run)
+    print(f"[{card}] grid sweep: {n_steps} steps x {S} scenarios in {wall!r} "
+          f"s = {n_steps / wall!r} steps/s, launches {launches}")
+    if launches["group_power"] != n_steps or launches["fused_cooling"] != 0:
+        raise SystemExit(f"grid sweep of {n_steps} steps launched "
+                         f"{launches}")
+    entry["launches"] = launches["group_power"]
+    check_run("grid sweep", finals, hists, n_steps, S)
+    over = hists.power_it - hists.cap_w
+    if not (over <= 1.0).all():
+        raise SystemExit(f"grid sweep: the cap is exceeded by up to "
+                         f"{float(over.max())!r} W")
+    for name in ("emissions_kg", "energy_cost"):
+        v = getattr(finals, name)
+        if not (torch.isfinite(v).all() and (v > 0).all()):
+            raise SystemExit(f"grid sweep: {name} not finite and positive: "
+                             f"{v.tolist()}")
+    throttled_rows = 0
+    for i, (p, b, kw) in enumerate(GRID_SWEEP):
+        s = stats_mod.summarize(system, table, T.row(finals, i),
+                                T.row(hists, i))
+        throttled_rows += s["throttled_steps"] > 0
+        print(f"  {p}:{b} {kw}: jobs_completed={s['jobs_completed']:.0f} "
+              f"tCO2={s['emissions_kg'] / 1e3!r} "
+              f"cost_usd={s['energy_cost_usd']!r} "
+              f"peak_mw={s['max_power_mw']!r} "
+              f"peak_it_mw={float(hists.power_it[i].max()) / 1e6!r} "
+              f"throttled_steps={s['throttled_steps']:.0f} "
+              f"avg_throttle_frac={s['avg_throttle_frac']!r} "
+              f"avg_wait_s={s['avg_wait_s']:.1f} "
+              f"avg_pue={s['avg_pue']:.5f}")
+    print(f"grid sweep: {throttled_rows} of {S} rows throttled at some step; "
+          f"power_it <= cap_w + 1 W at every step of every row (largest "
+          f"excess {float(over.max())!r} W)")
+    # row 0 is fcfs:first-fit at cap scale 1, which simulate_static names
+    check_row_vs_solo("grid sweep", finals, hists, eng.simulate_static(
+        system, table, *GRID_SWEEP[0][:2], 0.0, FRONTIER_T1, signals=sig))
+    admit_s, total = admission_share(run)
+    print(f"[{card}] grid admission loop: {admit_s!r} s of {total!r} s "
+          f"= {admit_s / total!r} of step time (synchronised run)")
+    print(f"[{card}] group_power total on the grid path: "
+          f"{entry['ms'] * n_steps!r} ms on the card ({n_steps} launches x "
+          f"{entry['ms']!r} ms) of {wall * 1e3!r} ms")
+
+def small_case():
     system = build_system("marconi100", 64, 4)
     js = generate(system, WorkloadSpec(n_jobs=64, duration_s=4 * 3600.0,
                                        load=1.4, trace_len=8, n_accounts=8,
                                        mean_wall_s=1800.0, seed=4))
     js.assign_prepop_placement(0.0, system.n_nodes)
-    table = js.to_table(80)
+    return system, js.to_table(80)
+
+def card_vs_cpu(label, system, table, scens, signals=None):
+    """The card's engine (with the kernels) against the port's CPU engine
+    (plain versions): schedules exactly, floats at 1e-4. ``throttle_frac``
+    is 1 - c with c near 1, so it also gets atol 1e-6 (a one-ulp
+    difference in c from another summation order)."""
+    kw = dict(num_accounts=8, signals=signals)
+    fg, hg = eng.simulate_sweep(system, table, scens, 0.0, 2 * 3600.0, **kw)
+    fc, hc = eng.simulate_sweep(system, table, scens, 0.0, 2 * 3600.0, **kw,
+                                device="cpu")
+    for name in ("jstate", "start", "end", "node_job"):
+        if not torch.equal(getattr(fg, name).cpu(), getattr(fc, name)):
+            raise SystemExit(f"{label}: card and CPU disagree on {name}")
+    for name, a in vars(hc).items():
+        atol = 1e-6 if name == "throttle_frac" else 1e-4
+        torch.testing.assert_close(getattr(hg, name).cpu(), a, rtol=1e-4,
+                                   atol=atol,
+                                   msg=lambda m: f"{label} {name}: {m}")
+    return fg, hg
+
+def small_reference():
+    system, table = small_case()
     scens = [T.Scenario.make("fcfs", "easy"),
              T.Scenario.make("sjf", "first-fit"),
              T.Scenario.make("acct_avg_power", "none")]
-    fg, hg = eng.simulate_sweep(system, table, scens, 0.0, 2 * 3600.0,
-                                num_accounts=8)
-    fc, hc = eng.simulate_sweep(system, table, scens, 0.0, 2 * 3600.0,
-                                num_accounts=8, device="cpu")
-    for name in ("jstate", "start", "end", "node_job"):
-        if not torch.equal(getattr(fg, name).cpu(), getattr(fc, name)):
-            raise SystemExit(f"small reference: card and CPU disagree on "
-                             f"{name}")
-    for name, a in vars(hc).items():
-        torch.testing.assert_close(getattr(hg, name).cpu(), a, rtol=1e-4,
-                                   atol=1e-4,
-                                   msg=lambda m: f"small reference {name}: {m}")
+    card_vs_cpu("small reference", system, table, scens)
     print("small reference (marconi100 x64, 4 halls, 3 scenarios, 2 h): card "
           "matches the CPU engine, schedules exact, floats within 1e-4")
 
+def small_grid_reference():
+    """The grid path on the card against the CPU under a constant cap
+    that binds: 40 % of the way from the idle floor to peak IT power."""
+    system, table = small_case()
+    system = dataclasses.replace(system, grid=dataclasses.replace(
+        system.grid, c_min=0.05))
+    floor = system.n_nodes * system.power.idle_node_w
+    peak = system.n_nodes * system.power.peak_node_w
+    n = int(round(2 * 3600.0 / system.dt))
+    sig = gsig.constant_signals(n, carbon_gkwh=400.0, price_kwh=0.1,
+                                cap_w=floor + 0.4 * (peak - floor))
+    scens = [T.Scenario.make("fcfs", "easy"),
+             T.Scenario.make("carbon_aware", "first-fit", carbon_weight=4.0,
+                             cap_scale=0.8),
+             T.Scenario.make("price_aware", "none", price_weight=4.0)]
+    _, hg = card_vs_cpu("small grid reference", system, table, scens, sig)
+    throttled = int((hg.throttle_frac > 1e-6).sum())
+    if throttled == 0:
+        raise SystemExit("small grid reference: the cap never bound")
+    print(f"small grid reference (marconi100 x64, 4 halls, 3 scenarios, 2 h, "
+          f"constant cap): card matches the CPU engine, schedules exact, "
+          f"floats within 1e-4; {throttled} throttled scenario-steps")
+
 def main():
+    t_start = time.perf_counter()
     card = nvidia_smi()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    entry = kernel_phase(card)
-    main_path(card, entry)
+    build_phase()
+    fused = kernel_phase(card)
+    group = group_kernel_phase(card)
+    main_path(card, fused)
+    grid_path(card, group)
     small_reference()
-    print(json.dumps({"kernels": [entry]}))
+    small_grid_reference()
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [fused, group]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,9 +21,11 @@ Parasitic power: staged cube-law fans per hall, cube-law pumps with a
 20% base. PUE = (P_IT + P_loss + P_cool) / P_IT.
 
 Every state tensor carries the leading scenario axis S; per-group
-quantities are [S, G], per-hall [S, H]. The weather-driven wet-bulb,
-the grid path's ``step`` and the event layer's failed cells belong to
-later slices: the wet-bulb is the config's static value.
+quantities are [S, G], per-hall [S, H]. ``step_from_node_power`` is the
+no-grid path (the fused kernel); ``step`` takes per-group heat, the
+throttled IT power of the grid path. The weather-driven wet-bulb and the
+event layer's failed cells belong to later slices: the wet-bulb is the
+config's static value.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ import torch
 
 from repro_torch.core.types import CoolingState
 from repro_torch.kernels.power_topo import ops as topo_ops
-from repro_torch.kernels.power_topo.ref import (CduParams, hall_max_ref,
-                                                hall_power_ref)
+from repro_torch.kernels.power_topo.ref import (CduParams, cdu_update_ref,
+                                                hall_max_ref, hall_power_ref)
+from repro_torch.power.model import sum_exact
 from repro_torch.systems.config import CoolingConfig
 
 
@@ -86,6 +89,7 @@ def cdu_params(cfg: CoolingConfig, dt: float) -> CduParams:
 class _Halls(NamedTuple):
     """Static per-hall constants on one device (f32[H] / [G, H])."""
     hog: tuple              # hall of each CDU group (host ints)
+    hog_idx: torch.Tensor   # i64[G] the same, on the device
     cells: torch.Tensor     # f32[H] installed tower cells
     mcp: torch.Tensor       # f32[H] basin thermal mass x cp (J/K)
     passive_ua: torch.Tensor  # f32[H] fans-off ambient coupling (W/K)
@@ -101,6 +105,7 @@ def halls(cfg: CoolingConfig, device: torch.device) -> _Halls:
     cells = f32(cfg.cells_per_hall())
     return _Halls(
         hog=hog,
+        hog_idx=torch.tensor(hog, dtype=torch.int64, device=device),
         cells=cells,
         mcp=f32(cfg.basin_mcp_per_hall()),
         passive_ua=cfg.passive_ua_frac * cells * cfg.cell_ua(),
@@ -136,13 +141,6 @@ def _effective(cfg: CoolingConfig, state: CoolingState, setpoint_delta_c):
     return t_wb, t_set
 
 
-def _sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, accumulated in float64 and rounded once:
-    exact for these few tens of terms, so independent of the reduction
-    order (and of the batch size on the card)."""
-    return x.sum(-1, dtype=torch.float64).to(x.dtype)
-
-
 def _cube(x: torch.Tensor) -> torch.Tensor:
     # x*x*x, not pow: the reference's integer power is two multiplies
     return x * x * x
@@ -167,7 +165,8 @@ def _finish_step(cfg: CoolingConfig, state: CoolingState, dt: float,
     mdot_hall = hall_power_ref(mdot, hs.hog, H)
     t_ret_mix_hall = hall_power_ref(mdot * t_return, hs.hog, H) / \
         torch.clamp(mdot_hall, min=1e-6)
-    t_ret_mix = _sum(mdot * t_return) / torch.clamp(_sum(mdot), min=1e-6)
+    t_ret_mix = sum_exact(mdot * t_return) / torch.clamp(sum_exact(mdot),
+                                                         min=1e-6)
 
     # heat reuse, per hall, at each hall's static export-capacity share
     q_reuse_h = torch.where(t_ret_mix_hall >= cfg.reuse_t_min_c,
@@ -207,9 +206,9 @@ def _finish_step(cfg: CoolingConfig, state: CoolingState, dt: float,
     k = torch.floor(fan)
     r = fan - k
     fan_w_h = cfg.fan_rated_w * (k + _cube(r))
-    fan_w = _sum(fan_w_h)
+    fan_w = sum_exact(fan_w_h)
     frac = mdot / cfg.mdot_kg_s
-    pump_w = _sum(cfg.pump_w_per_group * (0.2 + 0.8 * _cube(frac)))
+    pump_w = sum_exact(cfg.pump_w_per_group * (0.2 + 0.8 * _cube(frac)))
 
     new = CoolingState(t_supply=t_supply, t_return=t_return, mdot=mdot,
                        t_basin=t_basin, fan_stages=fan)
@@ -217,13 +216,39 @@ def _finish_step(cfg: CoolingConfig, state: CoolingState, dt: float,
         p_cooling=fan_w + pump_w, p_fan=fan_w, p_pump=pump_w,
         t_tower_return=t_ret_mix, t_basin=t_basin.amax(-1),
         t_supply_max=t_supply.amax(-1), t_return_max=t_return.amax(-1),
-        q_reuse_w=_sum(q_reuse_h), q_reject_w=_sum(q_rej),
+        q_reuse_w=sum_exact(q_reuse_h), q_reject_w=sum_exact(q_rej),
         q_hall_w=q_hall, t_basin_hall=t_basin,
         t_supply_max_hall=hall_max_ref(t_supply, hs.hog, cfg.n_halls),
         t_return_max_hall=hall_max_ref(t_return, hs.hog, cfg.n_halls),
         q_reject_hall_w=q_rej, fan_w_hall=fan_w_h, cells_online=cells_on,
         t_wetbulb_hall=t_wb)
     return new, out
+
+
+def step(cfg: CoolingConfig, state: CoolingState, group_heat_w: torch.Tensor,
+         dt: float, setpoint_delta_c=0.0, cells_offline=0.0
+         ) -> tuple[CoolingState, CoolingOut]:
+    """Advance the plant by ``dt`` seconds from per-group heat (the grid
+    path: the heat is the throttled IT power per CDU group).
+
+    Args:
+      group_heat_w: f32[S, G] heat load per CDU group (W).
+      setpoint_delta_c: offset on the supply setpoint (°C), f32[S] or a
+        number (``Scenario.setpoint_delta_c``).
+      cells_offline: tower cells out for maintenance, a number, f32[S] or
+        f32[S, H] (``Scenario.cells_offline``).
+    Returns:
+      (new_state, CoolingOut); the hall heat sums are formed from
+      ``group_heat_w`` inside ``_finish_step``.
+    """
+    t_wb, t_set = _effective(cfg, state, setpoint_delta_c)
+    hs = halls(cfg, group_heat_w.device)
+    t_basin_g = state.t_basin[:, hs.hog_idx]   # each group sees its hall's basin
+    q, t_return, t_supply, mdot = cdu_update_ref(
+        group_heat_w, state.t_supply, state.mdot, t_basin_g, t_set,
+        cdu_params(cfg, dt))
+    return _finish_step(cfg, state, dt, t_wb, t_set, q, t_return, t_supply,
+                        mdot, cells_offline)
 
 
 def step_from_node_power(cfg: CoolingConfig, state: CoolingState,
@@ -244,7 +269,7 @@ def step_from_node_power(cfg: CoolingConfig, state: CoolingState,
         cfg.hall_of_group(), cfg.n_groups, cdu_params(cfg, dt))
     new, out = _finish_step(cfg, state, dt, t_wb, t_set, q, t_return,
                             t_supply, mdot, cells_offline, q_hall=q_hall)
-    return new, out, _sum(q_hall)
+    return new, out, sum_exact(q_hall)
 
 
 def thermal_now(cfg: CoolingConfig, state: CoolingState,

@@ -14,6 +14,7 @@ reference's ``segment_sum``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -63,7 +64,8 @@ def fold_completions(system: SystemConfig, table: JobTable,
     Returns:
       Updated [S, A] ledgers: node-hours, energy (J), EDP (J·s), ED²P
       (J·s²), wait/turnaround sums (s), average per-node power (W),
-      Fugaku points. The carbon/cost columns belong to the grid path.
+      Fugaku points. The carbon/cost columns accrue per step
+      (``accrue_grid``).
     """
     A = accounts.energy.shape[-1]
     nodes_f = table.nodes.to(torch.float32)
@@ -94,3 +96,25 @@ def fold_completions(system: SystemConfig, table: JobTable,
         carbon_kg=accounts.carbon_kg,
         cost=accounts.cost,
     )
+
+
+def accrue_grid(table: JobTable, accounts: AccountStats,
+                job_energy_step: torch.Tensor, carbon_gkwh: torch.Tensor,
+                price_kwh: torch.Tensor) -> AccountStats:
+    """Per-step grid accrual: attribute each job's IT energy this step to
+    its account at the current carbon intensity and price, so accounts
+    that shift load into clean or cheap windows accumulate less.
+
+    Args:
+      job_energy_step: f32[S, J] IT energy each job consumed this step (J).
+      carbon_gkwh: f32[S] carbon intensity now (g CO2 / kWh).
+      price_kwh: f32[S] electricity price now ($ / kWh).
+    Returns:
+      [S, A] ledgers with ``carbon_kg`` (kg CO2) and ``cost`` ($) advanced.
+    """
+    A = accounts.energy.shape[-1]
+    kwh = segment_sum(job_energy_step, table.account, A) / 3.6e6
+    return dataclasses.replace(
+        accounts,
+        carbon_kg=accounts.carbon_kg + kwh * carbon_gkwh[:, None] * 1e-3,
+        cost=accounts.cost + kwh * price_kwh[:, None])

@@ -4,15 +4,22 @@ Main loop per step (the paper's four steps), batched over scenarios:
   (1) prepare     -- clear completed jobs, free their nodes, fold accounting;
   (2) arrivals    -- move submitted jobs into the queue;
   (3) schedule    -- policy sort + bounded admission (``scheduler``),
-                     thermally throttled when cooling loses its setpoint;
-  (4) tick        -- power model -> fused node->CDU->hall cooling step (the
-                     Hopper kernel on the card) -> conversion losses ->
-                     the rest of the plant -> telemetry row; advance time.
+                     cap-aware when grid signals are given and thermally
+                     throttled when cooling loses its setpoint;
+  (4) tick        -- power model -> without signals, the fused
+                     node->CDU->hall cooling step (a Hopper kernel on the
+                     card); with signals, DVFS cap enforcement (the
+                     group-power Hopper kernel) -> the plant step on the
+                     throttled group heat -> grid accrual and runtime
+                     dilation; then conversion losses -> the rest of the
+                     plant -> telemetry row; advance time.
 
 The JAX engine scans one step function with ``lax.scan`` and batches
 scenarios with ``vmap``. Here every tensor of the state carries the
-scenario axis S and the scan is a Python loop over steps. This slice runs
-the no-grid, no-events, no-weather path; those layers are later slices.
+scenario axis S and the scan is a Python loop over steps. Grid signals
+(``repro_torch.grid.signals.GridSignals``) are shared by every scenario
+and gathered at each scenario's step. The event layer and weather traces
+are later slices.
 
 Entry points (``simulate``, ``simulate_static``, ``simulate_sweep``) run
 on ``device="cuda"`` unless the caller passes ``device="cpu"``; without a
@@ -30,6 +37,8 @@ from repro_torch.core import accounts as acct_mod
 from repro_torch.core import resource_manager as rm
 from repro_torch.core import scheduler as sched
 from repro_torch.core import types as T
+from repro_torch.grid import powercap
+from repro_torch.grid import signals as gsig
 from repro_torch.power import losses as plosses
 from repro_torch.power import model as pmodel
 from repro_torch.systems.config import SystemConfig
@@ -112,23 +121,44 @@ def _prepare_and_arrivals(system: SystemConfig, table: T.JobTable,
 
 
 def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
-          thermal: cooling.ThermalNow, setpoint_delta_c, cells_offline
+          thermal: cooling.ThermalNow, setpoint_delta_c, cells_offline,
+          grid: gsig.GridNow | None = None,
+          cap_active: torch.Tensor | None = None
           ) -> Tuple[T.SimState, dict]:
-    """Phase (4) without the grid layer: physics + accounting + telemetry.
+    """Phase (4): cap enforcement + physics + accounting + telemetry.
 
-    The node->CDU segment reduction fuses with the cooling-loop update
-    (``cooling.step_from_node_power``); total IT power falls out of the
-    hall sums. Returns the new state and this step's varying telemetry
-    (``_history`` adds the rows that are constant on this path).
+    With grid signals (``grid``, f32[S] each), when the IT draw exceeds
+    ``cap_active`` (f32[S]) the DVFS pass (``grid.powercap``) throttles
+    every running node's dynamic power by a common factor c, and the
+    affected jobs' remaining runtime dilates for this step: capping trades
+    completion latency for peak power. ``grid is None`` is "no grid
+    layer": no accrual, no dilation, and the node->CDU segment reduction
+    fuses with the cooling-loop update (``cooling.step_from_node_power``).
+    Returns the new state and this step's telemetry (``_history`` adds the
+    rows that are constant on this path).
     """
     dt = system.dt
+    # profiles are indexed by work-time progress, so a throttled job's
+    # trace plays at its dilated tempo instead of wall-clock time
     job_pw = pmodel.job_node_power_elapsed(table, st.jstate, st.progress,
                                            system.prof_dt)
     node_pw = pmodel.node_power(system, table, st.node_job, job_pw)
     running = st.jstate == T.RUNNING
-    cool_state, cool, p_it = cooling.step_from_node_power(
-        system.cooling, st.cooling, node_pw, dt, setpoint_delta_c,
-        cells_offline)
+    if grid is not None:
+        idle = system.power.idle_node_w
+        cap = powercap.enforce_cap(system, node_pw, cap_active)
+        p_it = cap.p_it
+        # DVFS only slows jobs with dynamic (above-idle) draw; a job at or
+        # below the idle floor keeps full speed
+        c_job = torch.where(running & (job_pw > idle), cap.c[:, None], 1.0)
+        job_pw = powercap.throttle_power(job_pw, idle, cap.c)
+        cool_state, cool = cooling.step(system.cooling, st.cooling,
+                                        cap.group_heat, dt, setpoint_delta_c,
+                                        cells_offline)
+    else:
+        cool_state, cool, p_it = cooling.step_from_node_power(
+            system.cooling, st.cooling, node_pw, dt, setpoint_delta_c,
+            cells_offline)
     n_racks = max(system.n_nodes // system.power.nodes_per_rack, 1)
     p_in, p_loss = plosses.conversion(system.power, p_it, float(n_racks))
     p_cool = cool.p_cooling
@@ -136,6 +166,25 @@ def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
 
     job_e_step = torch.where(running,
                              job_pw * table.nodes.to(torch.float32) * dt, 0.0)
+    grid_rows = {}        # the grid telemetry rows (constant without it)
+    if grid is not None:
+        accounts = acct_mod.accrue_grid(table, st.accounts, job_e_step,
+                                        grid.carbon, grid.price)
+        # runtime dilation: a throttled step advances a job's work-time by
+        # only c*dt, so its projected end recedes by the shortfall
+        # dt*(1 - c); t >= end  <=>  progress >= wall
+        end = torch.where(running & torch.isfinite(st.end),
+                          st.end + dt * (1.0 - c_job), st.end)
+        progress = st.progress + torch.where(running, c_job * dt, 0.0)
+        emissions = p_total * dt * grid.carbon / 3.6e6 * 1e-3  # g/kWh -> kg
+        cost = p_total * dt * grid.price / 3.6e6               # $/kWh
+        grid_rows = dict(emissions_kg=emissions, energy_cost=cost,
+                         cap_w=cap_active, throttle_frac=1.0 - cap.c)
+        advanced = dict(accounts=accounts, end=end, progress=progress,
+                        emissions_kg=st.emissions_kg + emissions,
+                        energy_cost=st.energy_cost + cost)
+    else:
+        advanced = dict(progress=st.progress + torch.where(running, dt, 0.0))
     busy = float(system.n_nodes) - st.free_count.to(torch.float32)
     rec = dict(
         t=st.t, power_it=p_it, power_loss=p_loss, power_cooling=p_cool,
@@ -152,10 +201,9 @@ def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
         power_it_hall=cool.q_hall_w, t_basin_hall=cool.t_basin_hall,
         t_supply_max_hall=cool.t_supply_max_hall,
         t_wetbulb_hall=cool.t_wetbulb_hall, cells_online=cool.cells_online,
-        overheat_hall=thermal.overheat_hall.to(torch.float32))
+        overheat_hall=thermal.overheat_hall.to(torch.float32), **grid_rows)
     new = dataclasses.replace(
-        st, t=st.t + dt, step=st.step + 1,
-        progress=st.progress + torch.where(running, dt, 0.0),
+        st, t=st.t + dt, step=st.step + 1, **advanced,
         jenergy=st.jenergy + job_e_step, cooling=cool_state,
         energy_total=st.energy_total + p_total * dt,
         energy_it=st.energy_it + p_it * dt,
@@ -166,19 +214,34 @@ def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
 
 
 def engine_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
-                scen: T.Scenario, backfills: tuple[int, ...] | None = None
+                scen: T.Scenario, backfills: tuple[int, ...] | None = None,
+                signals: gsig.GridSignals | None = None
                 ) -> Tuple[T.SimState, dict]:
-    """One engine step, phases (1)-(4), for a batch of scenarios (no grid
-    signals, no weather trace, no event layer). ``backfills``: see
+    """One engine step, phases (1)-(4), for a batch of scenarios (no
+    weather trace, no event layer). ``signals`` (on the state's device)
+    enables the grid layer; ``backfills``: see
     ``scheduler.schedule_step``."""
     st = _prepare_and_arrivals(system, table, st)
     # cooling-pressure signals for the thermal_aware policy + admission gate
     thermal = cooling.thermal_now(system.cooling, st.cooling,
                                   scen.setpoint_delta_c)
+    if signals is None:
+        # no grid layer: no admission power pass, no cap machinery
+        st = sched.schedule_step(system, table, st, scen, thermal=thermal,
+                                 backfills=backfills)
+        return _tick(system, table, st, thermal, scen.setpoint_delta_c,
+                     scen.cells_offline)
+    grid = gsig.at_step(signals, st.step)
+    cap_active = grid.cap_w * scen.cap_scale
+    # raw IT draw after completions: the cap-aware admission baseline
+    job_pw = pmodel.job_node_power_elapsed(table, st.jstate, st.progress,
+                                           system.prof_dt)
+    node_pw = pmodel.node_power(system, table, st.node_job, job_pw)
     st = sched.schedule_step(system, table, st, scen, thermal=thermal,
-                             backfills=backfills)
+                             backfills=backfills, grid=grid,
+                             proj_pw=pmodel.system_it_power(node_pw))
     return _tick(system, table, st, thermal, scen.setpoint_delta_c,
-                 scen.cells_offline)
+                 scen.cells_offline, grid, cap_active)
 
 
 # ---------------------------------------------------------------------------
@@ -186,14 +249,17 @@ def engine_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
 # ---------------------------------------------------------------------------
 def _history(system: SystemConfig, rows: list[dict]) -> T.StepRecord:
     """Stack per-step rows into f32[S, T] (f32[S, T, H]) telemetry, adding
-    the rows that are constant without the grid and event layers."""
+    the rows that are constant without the event layer, and without the
+    grid layer when the run had no signals."""
     cols = {k: torch.stack([r[k] for r in rows], 1) for k in rows[0]}
     z = torch.zeros_like(cols["t"])
+    if "cap_w" not in cols:
+        cols.update(emissions_kg=z.clone(), energy_cost=z.clone(),
+                    cap_w=torch.full_like(z, torch.inf),
+                    throttle_frac=z.clone())
     return T.StepRecord(
-        **cols, emissions_kg=z, energy_cost=z.clone(),
-        cap_w=torch.full_like(z, torch.inf), throttle_frac=z.clone(),
-        t_wetbulb=torch.full_like(z, system.cooling.t_wetbulb_c),
-        nodes_down=z.clone(), n_killed=z.clone())
+        **cols, t_wetbulb=torch.full_like(z, system.cooling.t_wetbulb_c),
+        nodes_down=z.clone(), n_killed=z)
 
 
 def _device(device) -> torch.device:
@@ -207,7 +273,7 @@ def _device(device) -> torch.device:
 
 
 def _run(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
-         t0: float, t1: float, accounts, num_accounts: int, device
+         t0: float, t1: float, accounts, num_accounts: int, signals, device
          ) -> Tuple[T.SimState, T.StepRecord]:
     """Scan the batched engine step from ``init_state`` over [t0, t1)."""
     dev = _device(device)
@@ -215,20 +281,22 @@ def _run(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
     backfills = tuple(sorted(set(scen.backfill.tolist())))
     table = table.to(dev)
     scen = T.tree_map(lambda x: x.to(dev), scen)
+    if signals is not None:
+        signals = signals.to(dev)
     S = scen.policy.shape[0]
     st0 = init_state(system, table, t0, t1, accounts, num_accounts)
     st = T.tree_map(lambda x: x.unsqueeze(0).repeat(S, *([1] * x.ndim)), st0)
     rows = []
     for _ in range(n_steps):
-        st, rec = engine_step(system, table, st, scen, backfills)
+        st, rec = engine_step(system, table, st, scen, backfills, signals)
         rows.append(rec)
     return st, _history(system, rows)
 
 
 def simulate(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
              t0: float, t1: float, accounts: T.AccountStats | None = None,
-             num_accounts: int = 64, device="cuda"
-             ) -> Tuple[T.SimState, T.StepRecord]:
+             num_accounts: int = 64, signals: gsig.GridSignals | None = None,
+             device="cuda") -> Tuple[T.SimState, T.StepRecord]:
     """Run the twin for one scenario from ``t0`` to ``t1`` (seconds).
 
     Args:
@@ -238,38 +306,44 @@ def simulate(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
       t0, t1: simulation window (s); ``round((t1 - t0) / dt)`` steps run.
       accounts: optional warm-start per-account ledgers ([A]).
       num_accounts: ledger size when ``accounts`` is None.
+      signals: per-step grid signals (g CO2/kWh, $/kWh, cap W), which
+        enable the grid layer; None runs without it.
       device: where to run; ``"cpu"`` only when asked for.
     Returns:
       (final SimState, StepRecord history f32[T] per field), without the
       scenario axis.
     """
     final, hist = _run(system, table, T.stack_scenarios([scen]), t0, t1,
-                       accounts, num_accounts, device)
+                       accounts, num_accounts, signals, device)
     return T.row(final, 0), T.row(hist, 0)
 
 
 def simulate_static(system: SystemConfig, table: T.JobTable, policy: str,
                     backfill: str, t0: float, t1: float,
                     accounts: T.AccountStats | None = None,
-                    num_accounts: int = 64, device="cuda"):
+                    num_accounts: int = 64,
+                    signals: gsig.GridSignals | None = None, device="cuda"):
     """Single scenario named by policy and backfill, every other knob at
     its neutral default. A batch of one runs the sweep's arithmetic row
     for row, and a batch without EASY skips the reservation machinery,
     as the reference's static fast path does."""
     return simulate(system, table, T.Scenario.make(policy, backfill), t0, t1,
-                    accounts, num_accounts, device)
+                    accounts, num_accounts, signals, device)
 
 
 def simulate_sweep(system: SystemConfig, table: T.JobTable,
                    scens: list[T.Scenario], t0: float, t1: float,
                    accounts: T.AccountStats | None = None,
-                   num_accounts: int = 64, device="cuda"
+                   num_accounts: int = 64,
+                   signals: gsig.GridSignals | None = None, device="cuda"
                    ) -> Tuple[T.SimState, T.StepRecord]:
     """What-if sweep: S scenarios advance together, one batched step at a
-    time (no Python loop over scenarios). The job table and initial state
-    are shared; the scenario knobs ride the S axis.
+    time (no Python loop over scenarios). The job table, initial state and
+    grid signals are shared; the scenario knobs ride the S axis, so a
+    (policy x cap-level x carbon-weight) sweep reads one signal set and
+    scales the cap by ``Scenario.cap_scale``.
 
     Returns (final SimState [S, ...], StepRecord [S, T, ...]).
     """
     return _run(system, table, T.stack_scenarios(list(scens)), t0, t1,
-                accounts, num_accounts, device)
+                accounts, num_accounts, signals, device)

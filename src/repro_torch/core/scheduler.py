@@ -15,9 +15,11 @@ first-fit / EASY semantics, batched over scenarios.
   they fit now and either finish before the shadow time or use no more
   than the ``extra`` nodes spare at it.
 
-The grid layer (cap-aware admission, demand response, the carbon and
-price signals) belongs to a later slice: the grid-aware policies order
-as the reference's do without a grid trace, by submit time.
+* Cap-aware admission (grid path): with a ``GridNow`` the loop carries
+  each scenario's projected IT power and starts a job only if its
+  estimated added draw keeps the projection under the active cap.
+  ``grid is None`` (no signals) skips that machinery entirely. Demand
+  response belongs to the events slice.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 from repro_torch.cooling import model as cmodel
 from repro_torch.core import resource_manager as rm
 from repro_torch.core import types as T
+from repro_torch.grid import signals as gsig
 from repro_torch.kernels.power_topo.ref import group_ids
 from repro_torch.systems.config import SystemConfig
 
@@ -38,7 +41,8 @@ from repro_torch.systems.config import SystemConfig
 # ---------------------------------------------------------------------------
 def policy_key(table: T.JobTable, accounts: T.AccountStats,
                scen: T.Scenario,
-               thermal: cmodel.ThermalNow | None = None) -> torch.Tensor:
+               thermal: cmodel.ThermalNow | None = None,
+               grid: gsig.GridNow | None = None) -> torch.Tensor:
     """f32[S, J] primary sort key of each scenario's policy (smaller =
     earlier).
 
@@ -47,10 +51,14 @@ def policy_key(table: T.JobTable, accounts: T.AccountStats,
       accounts: [S, A] per-account ledgers feeding the incentive policies.
       scen: batched scenario knobs (policy id, deferral weights).
       thermal: cooling-pressure signals at this step; neutral when None.
+      grid: grid-signal values at this step, f32[S] each (g CO2/kWh,
+        $/kWh, W); neutral when None.
     """
     S = scen.policy.shape[0]
     if thermal is None:
         thermal = cmodel.thermal_neutral(S, device=table.submit.device)
+    if grid is None:
+        grid = gsig.now_neutral(S, device=table.submit.device)
     acct = table.account.long()
     submit = table.submit.expand(S, -1)
 
@@ -61,10 +69,18 @@ def policy_key(table: T.JobTable, accounts: T.AccountStats,
         return per_acct(accounts.power_sum) / torch.clamp(
             per_acct(accounts.jobs_done), min=1.0)
 
+    # grid-aware deferral (carbon_aware / price_aware): FCFS order plus a
+    # penalty on energy-heavy jobs (node-seconds as the energy proxy) while
+    # the signal sits above its rolling mean. Weight 0 is pure FCFS.
+    defer_cost = table.nodes.to(torch.float32) * table.limit
+
+    def grid_key(now, ref, weight):                # [S] each
+        excess = torch.clamp(now - ref, min=0.0) / torch.clamp(ref, min=1e-6)
+        return submit + (weight * excess)[:, None] * defer_cost
+
     # cooling-aware deferral: FCFS order plus a penalty on heat-dense jobs
     # (W x node·s, in kW·node·s) ramping in with the return temperature
-    defer_heat = table.nodes.to(torch.float32) * table.limit * \
-        table.power_prof[:, 0] * 1e-3
+    defer_heat = defer_cost * table.power_prof[:, 0] * 1e-3
 
     def thermal_key():
         return submit + scen.thermal_weight[:, None] * \
@@ -82,10 +98,10 @@ def policy_key(table: T.JobTable, accounts: T.AccountStats,
         lambda: per_acct(accounts.ed2p),           # ACCT_ED2P
         lambda: -per_acct(accounts.fugaku_pts),    # ACCT_FUGAKU_PTS
         lambda: (-table.score).expand(S, -1),      # ML score (higher first)
-        # CARBON_AWARE, PRICE_AWARE: without grid signals the reference's
-        # deferral term is weight * 0 * node-seconds, so both are FCFS
-        lambda: submit,
-        lambda: submit,
+        lambda: grid_key(grid.carbon, grid.carbon_ref,
+                         scen.carbon_weight),      # CARBON_AWARE
+        lambda: grid_key(grid.price, grid.price_ref,
+                         scen.price_weight),       # PRICE_AWARE
         thermal_key,                               # THERMAL_AWARE
     ]
     keys = torch.stack([b() for b in builders])            # [P, S, J]
@@ -98,7 +114,8 @@ def policy_key(table: T.JobTable, accounts: T.AccountStats,
 
 
 def queue_order(table: T.JobTable, st: T.SimState, accounts: T.AccountStats,
-                scen: T.Scenario, thermal: cmodel.ThermalNow | None = None
+                scen: T.Scenario, thermal: cmodel.ThermalNow | None = None,
+                grid: gsig.GridNow | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sorted queue per scenario: eligible jobs first by (key, submit), ties
     in index order. Returns (order i64[S, J], eligible bool[S, J]).
@@ -111,7 +128,7 @@ def queue_order(table: T.JobTable, st: T.SimState, accounts: T.AccountStats,
     replay_gate = torch.where((scen.policy == T.POLICY_REPLAY)[:, None],
                               table.rec_start <= st.t[:, None], True)
     elig = queued & replay_gate & table.valid
-    key = torch.where(elig, policy_key(table, accounts, scen, thermal),
+    key = torch.where(elig, policy_key(table, accounts, scen, thermal, grid),
                       torch.inf)
     tie = torch.where(elig, table.submit, torch.inf)
     by_tie = torch.sort(tie, dim=1, stable=True).indices
@@ -205,9 +222,20 @@ def hall_placement_plan(system: SystemConfig, st: T.SimState,
 # ---------------------------------------------------------------------------
 def schedule_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
                   scen: T.Scenario, thermal: cmodel.ThermalNow | None = None,
-                  backfills: tuple[int, ...] | None = None) -> T.SimState:
+                  backfills: tuple[int, ...] | None = None,
+                  grid: gsig.GridNow | None = None,
+                  proj_pw: torch.Tensor | None = None) -> T.SimState:
     """One call of ``schedule`` (paper Algorithm step 3): reorder each
     scenario's queue by its policy and admit jobs under its backfill rule.
+
+    Cap-aware admission: with grid signals (``grid``, f32[S] each) a job
+    starts only if the projected IT power (``proj_pw`` f32[S], given with
+    ``grid``: the raw draw after completions, plus the estimated draw
+    added by jobs placed earlier in this pass) stays under
+    ``grid.cap_w * scen.cap_scale``. A head blocked by the cap alone
+    halts admission under BF_NONE and BF_EASY (backfill would eat the
+    headroom it waits for); first-fit stays greedy. ``grid is None``
+    skips the cap machinery entirely.
 
     Thermal admission throttling: when a hall's cooling loop has lost the
     supply setpoint by more than ``CoolingConfig.t_supply_margin_c``,
@@ -231,7 +259,7 @@ def schedule_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
         free_ok = st.free_count
     thermal_ok = (torch.ones_like(is_replay) if thermal is None
                   else ~thermal.overheat)
-    order, _ = queue_order(table, st, st.accounts, scen, thermal)
+    order, _ = queue_order(table, st, st.accounts, scen, thermal, grid)
     easy = backfills is None or T.BF_EASY in backfills
     if easy:
         end_sorted, cum_nodes = release_profile(table, st)
@@ -248,10 +276,19 @@ def schedule_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
                             True)
     valid_k = (torch.gather(st.jstate, 1, order_k) == T.QUEUED) & replay_ok
     need_k = table.nodes[order_k]
+    if grid is None:
+        cap = None
+    else:
+        # estimated power a job adds on start: its first profile sample
+        # above the idle floor its nodes already draw
+        est_add_pw = torch.clamp(
+            table.power_prof[:, 0] - system.power.idle_node_w, min=0.0) * \
+            table.nodes.to(torch.float32)
+        cap = (proj_pw, est_add_pw[order_k], grid.cap_w * scen.cap_scale)
     placed, node_job, free_count = _admit(
         st.node_job, st.free_count, free_ok, order_k, valid_k, need_k,
         t + table.limit[order_k], scen.backfill, is_replay, thermal_ok,
-        easy, end_sorted, cum_nodes, order_nodes, node_ok)
+        easy, end_sorted, cum_nodes, order_nodes, node_ok, cap)
 
     # commit: each job in order_k appears once, so the scatters are exact
     jstate = st.jstate.scatter(1, order_k, torch.where(
@@ -266,13 +303,15 @@ def schedule_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
 
 def _admit(node_job, free_count, free_ok, order_k, valid_k, need_k,
            limit_end_k, backfill, is_replay, thermal_ok, easy, end_sorted,
-           cum_nodes, order_nodes, node_ok):
+           cum_nodes, order_nodes, node_ok, cap=None):
     """The admission loop: K sequential placement attempts, each batched
     over scenarios. Returns (placed bool[S, K], node_job, free_count).
 
     ``limit_end_k`` is t + the requested limit of each queued job (the
     EASY finish-before-shadow test); ``order_nodes``/``node_ok`` are None
     on a flat plant (index-order placement, all-or-nothing thermal gate).
+    ``cap`` is None without grid signals, else (projected IT power f32[S],
+    estimated added power of each queued job f32[S, K], active cap f32[S]).
     """
     S, K = valid_k.shape
     hall_aware = order_nodes is not None
@@ -284,6 +323,8 @@ def _admit(node_job, free_count, free_ok, order_k, valid_k, need_k,
     shadow_extra = torch.zeros_like(free_count)
     order_k32 = order_k.to(torch.int32)
     placed = torch.zeros_like(valid_k)
+    if cap is not None:
+        proj, est_add_k, cap_active = cap
     for i in range(K):
         need, valid = need_k[:, i], valid_k[:, i]
         # deterministic first-free placement (coolest hall first on a
@@ -310,16 +351,26 @@ def _admit(node_job, free_count, free_ok, order_k, valid_k, need_k,
         # thermal admission: a flat plant gates all-or-nothing, a
         # multi-hall one admits what fits inside the halls holding setpoint
         th_ok = need <= free_ok if hall_aware else thermal_ok
-        # replay ignores backfill and the thermal gate
-        place = valid & fits & (is_replay | (can_bf & th_ok))
+        # cap-aware admission: starting this job must not breach the cap.
+        # Like the thermal gate it is a non-node resource: a head blocked
+        # by either feeds blocked_any/head_capped below.
+        if cap is None:
+            ok = th_ok
+        else:
+            cap_ok = proj + est_add_k[:, i] <= cap_active
+            ok = cap_ok & th_ok
+        # replay ignores backfill, the cap and the thermal gate
+        place = valid & fits & (is_replay | (can_bf & ok))
 
         node_job = rm.place(node_job, sel, order_k32[:, i], place)
         free_count = free_count - torch.where(place, need, 0)
         if hall_aware:
             free_ok = free_ok - torch.sum(sel & node_ok & place[:, None], 1,
                                           dtype=torch.int32)
+        if cap is not None:
+            proj = proj + torch.where(place, est_add_k[:, i], 0.0)
         placed[:, i] = place
-        blocked_any = blocked_any | (valid & ~(fits & th_ok))
+        blocked_any = blocked_any | (valid & ~(fits & ok))
         head_blocked = head_blocked | (valid & ~fits)
-        head_capped = head_capped | (valid & fits & ~th_ok)
+        head_capped = head_capped | (valid & fits & ~ok)
     return placed, node_job, free_count

@@ -287,7 +287,7 @@ class StepRecord:
 # ---------------------------------------------------------------------------
 # knobs of layers this slice does not run, at their neutral values
 _UNPORTED_KNOBS = {
-    "cap_scale": 1.0, "alpha": 0.0, "node_fail_rate": 0.0,
+    "alpha": 0.0, "node_fail_rate": 0.0,
     "cdu_fail_rate": 0.0, "cell_fail_rate": 0.0, "failure_corr": 0.0,
     "dr_announce_s": -1.0,
 }
@@ -297,27 +297,33 @@ _UNPORTED_KNOBS = {
 class Scenario:
     """What-if knobs of one scenario (0-d tensors) or of a batch (leading
     axis S, see ``stack_scenarios``). Every knob after policy/backfill has
-    a neutral default. The grid knobs (carbon/price weights, cap scale),
-    ML alpha and the failure and demand-response knobs of the JAX
-    ``Scenario`` belong to layers that later slices port."""
+    a neutral default. ML alpha and the failure and demand-response knobs
+    of the JAX ``Scenario`` belong to layers that later slices port."""
     policy: torch.Tensor            # i32 POLICY_*
     backfill: torch.Tensor          # i32 BF_*
     acct_weight: torch.Tensor       # f32 weight on account-derived keys
+    carbon_weight: torch.Tensor     # f32 POLICY_CARBON deferral strength
+    price_weight: torch.Tensor      # f32 POLICY_PRICE deferral strength
+    cap_scale: torch.Tensor         # f32 scales GridSignals.cap_w
     thermal_weight: torch.Tensor    # f32 POLICY_THERMAL strength
     setpoint_delta_c: torch.Tensor  # f32 offset on the supply setpoint (°C)
     cells_offline: torch.Tensor     # f32 (or f32[H]) tower cells offline
 
     @staticmethod
     def make(policy: str | int, backfill: str | int = "none",
-             acct_weight: float = 1.0, thermal_weight: float = 1.0,
-             setpoint_delta_c: float = 0.0, cells_offline=0.0) -> "Scenario":
+             acct_weight: float = 1.0, carbon_weight: float = 1.0,
+             price_weight: float = 1.0, cap_scale: float = 1.0,
+             thermal_weight: float = 1.0, setpoint_delta_c: float = 0.0,
+             cells_offline=0.0) -> "Scenario":
         p = POLICY_NAMES[policy] if isinstance(policy, str) else policy
         b = BACKFILL_NAMES[backfill] if isinstance(backfill, str) else backfill
         f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
         return Scenario(
             policy=torch.tensor(p, dtype=torch.int32),
             backfill=torch.tensor(b, dtype=torch.int32),
-            acct_weight=f32(acct_weight), thermal_weight=f32(thermal_weight),
+            acct_weight=f32(acct_weight), carbon_weight=f32(carbon_weight),
+            price_weight=f32(price_weight), cap_scale=f32(cap_scale),
+            thermal_weight=f32(thermal_weight),
             setpoint_delta_c=f32(setpoint_delta_c),
             cells_offline=f32(cells_offline))
 
@@ -325,8 +331,8 @@ class Scenario:
     def from_arrays(m: Mapping, device="cpu") -> "Scenario":
         """Build from the JAX ``Scenario``'s leaves (numpy, by field name),
         one scenario or a stacked batch. Knobs of layers this slice does
-        not run must sit at their neutral values; the carbon and price
-        weights act only on grid signals, so they are dropped."""
+        not run (ML alpha, failures, demand response) must sit at their
+        neutral values."""
         _refuse(m, "Scenario", neutral=_UNPORTED_KNOBS)
         return _from_arrays(Scenario, m, device, batch=False)
 

@@ -13,7 +13,28 @@ import torch
 
 from repro_torch.kernels.power_topo import power_topo
 from repro_torch.kernels.power_topo.ref import (CduParams, fused_cooling_ref,
+                                                group_power_ref,
+                                                group_power_split_ref,
                                                 hall_power_ref)
+
+
+def group_power(node_pw: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Segment sum of per-node power over contiguous CDU-group spans:
+    f32[S, N] -> f32[S, G] (W)."""
+    if node_pw.device.type == "cpu":
+        return group_power_ref(node_pw, n_groups)
+    return power_topo.group_power_cuda(node_pw, n_groups)
+
+
+def group_power_split(node_pw: torch.Tensor, idle_w: float,
+                      n_groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-group idle floor and dynamic power in one pass over the nodes:
+    f32[S, N] -> (floor_g, dyn_g), each f32[S, G] (W), the sums of
+    ``min(p, idle_w)`` and of ``p - min(p, idle_w)``. On the card one
+    launch reads ``node_pw`` once for both sums."""
+    if node_pw.device.type == "cpu":
+        return group_power_split_ref(node_pw, idle_w, n_groups)
+    return power_topo.group_power_cuda(node_pw, n_groups, idle_w=idle_w)
 
 
 def fused_cooling(node_pw: torch.Tensor, t_supply: torch.Tensor,

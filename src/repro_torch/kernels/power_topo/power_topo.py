@@ -1,14 +1,15 @@
-"""Hopper kernel for the fused node->CDU cooling step: build, bind, launch.
+"""Hopper kernels of the power topology: build, bind, launch.
 
 ``csrc/fused_cooling.cu`` replaces the Pallas TPU kernel
-``fused_cooling_pallas`` (``repro/kernels/power_topo/power_topo.py``). It
-is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C entry point at first use, into ``build/`` beside this module (a
-directory git ignores), and bound with ``ctypes``. Nothing here runs at
+``fused_cooling_pallas`` and ``csrc/group_power.cu`` replaces
+``group_power_pallas`` (both in ``repro/kernels/power_topo/power_topo.py``).
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C entry point at first use, into ``build/`` beside this module
+(a directory git ignores), and bound with ``ctypes``. Nothing here runs at
 import time, so the CPU-only tests can import the module.
 
-The wrapper takes CUDA tensors only; the CPU path is ``ref.py``, chosen
-by ``ops`` from the tensor's device.
+The wrappers take CUDA tensors only; the CPU path is ``ref.py``, chosen by
+``ops`` from the tensor's device.
 """
 from __future__ import annotations
 
@@ -25,21 +26,28 @@ from repro_torch import kernels
 from repro_torch.kernels.power_topo.ref import CduParams, slew_factors
 
 _HERE = pathlib.Path(__file__).resolve().parent
-_SOURCE = _HERE / "csrc" / "fused_cooling.cu"
+SOURCES = ("fused_cooling", "group_power")    # csrc/<name>.cu, one library each
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")
 
-_lib = None          # the loaded library, once built
-build_log = ""       # nvcc's output of the last build (ptxas register use)
+_libs: dict = {}     # name -> the loaded library, once built
+build_logs: dict = {}  # name -> nvcc's output of its last build (ptxas use)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_P, _I, _I, _I, _I,                 # node_pw, S, N, G, span
-             _P, _P, _P, _L, _L, _P, _L, _L,     # t_sup, mdot, tb(+strides), tset(+strides)
-             _F, _F, _F, _F, _F, _F, _F,         # CDU scalars
-             _P, _P, _P, _P, _P]                 # 4 outputs, stream
+_ARGTYPES = {
+    "fused_cooling": [
+        _P, _I, _I, _I, _I,                 # node_pw, S, N, G, span
+        _P, _P, _P, _L, _L, _P, _L, _L,     # t_sup, mdot, tb(+strides), tset(+strides)
+        _F, _F, _F, _F, _F, _F, _F,         # CDU scalars
+        _P, _P, _P, _P, _P],                # 4 outputs, stream
+    "group_power": [
+        _P, _I, _I, _I, _I,                 # node_pw, S, N, G, span
+        _I, _F,                             # split flag, idle floor (W)
+        _P, _P, _P],                        # 2 outputs, stream
+}
 
 
 def _nvcc() -> str:
@@ -51,34 +59,53 @@ def _nvcc() -> str:
     return str(pathlib.Path(home) / "bin" / "nvcc")
 
 
-def build() -> pathlib.Path:
-    """Compile the kernel (if this source and these flags have not been
-    built yet) and return the library's path. Raises if ``nvcc`` fails."""
-    global build_log
-    digest = hashlib.sha256(_SOURCE.read_bytes() +
+def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
+    """(source, library path) of kernel ``name``; the library's name
+    carries a digest of the source and the flags."""
+    src = _HERE / "csrc" / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_cooling-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{build_log}")
-    os.replace(tmp, out)   # atomic: a concurrent process never loads a partial file
-    return out
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.fused_cooling_launch.argtypes = _ARGTYPES
-        lib.fused_cooling_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def build(*names: str) -> dict:
+    """Compile the named kernels (all of ``SOURCES`` when none is named)
+    whose source and flags have not been built yet, one ``nvcc`` process
+    per source, all started together. Returns {name: library path};
+    raises once every process has ended if any ``nvcc`` failed."""
+    names = names or SOURCES
+    running = {}
+    for name in names:
+        src, out = _target(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        running[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)   # atomic: no process loads a partial file
+    if failed:
+        raise RuntimeError("nvcc failed on " + ", ".join(
+            f"csrc/{n}.cu:\n{build_logs[n]}" for n in failed))
+    return {name: _target(name)[1] for name in names}
+
+
+def _library(name: str):
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name)[name]))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
 
 
 def fused_cooling_cuda(node_pw: torch.Tensor, t_supply: torch.Tensor,
@@ -121,7 +148,7 @@ def fused_cooling_cuda(node_pw: torch.Tensor, t_supply: torch.Tensor,
     a_valve, a_hx = slew_factors(p)
     outs = [torch.empty((S, n_groups), dtype=torch.float32, device=dev)
             for _ in range(4)]
-    lib = _library()
+    lib = _library("fused_cooling")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_cooling_launch(
@@ -137,3 +164,50 @@ def fused_cooling_cuda(node_pw: torch.Tensor, t_supply: torch.Tensor,
                            f"error {err}")
     kernels.LAUNCHES["fused_cooling"] += 1
     return tuple(outs)
+
+
+def group_power_cuda(node_pw: torch.Tensor, n_groups: int,
+                     idle_w: float | None = None):
+    """Launch the group-power kernel on the current stream.
+
+    Args:
+      node_pw: f32[S, N] per-node power (W), contiguous, on a CUDA device.
+      n_groups: number of CDU groups G (contiguous ceil-spans of nodes).
+      idle_w: None for the plain segment sum; the per-node idle floor (W)
+        for the split mode.
+    Returns:
+      plain: a new f32[S, G] of group sums; split: (floor_g, dyn_g), two
+      new f32[S, G], the groups' sums of ``min(p, idle)`` and of the rest.
+    """
+    if node_pw.ndim != 2:
+        raise ValueError(f"group_power: node_pw must have shape [S, N], "
+                         f"got {tuple(node_pw.shape)}")
+    if node_pw.dtype != torch.float32:
+        raise ValueError(f"group_power: node_pw must be float32, got "
+                         f"{node_pw.dtype}")
+    if node_pw.device.type != "cuda":
+        raise ValueError(f"group_power: node_pw must be a CUDA tensor, got "
+                         f"{node_pw.device}")
+    if not node_pw.is_contiguous():
+        raise ValueError("group_power: node_pw must be contiguous")
+    S, N = node_pw.shape
+    if S < 1 or N < 1 or n_groups < 1:
+        raise ValueError(f"group_power: need S, N, G >= 1, got S={S} N={N} "
+                         f"G={n_groups}")
+    span = -(-N // n_groups)        # ceil: matches ref.group_ids
+    split = idle_w is not None
+    dev = node_pw.device
+    outs = [torch.empty((S, n_groups), dtype=torch.float32, device=dev)
+            for _ in range(2 if split else 1)]
+    lib = _library("group_power")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.group_power_launch(
+            node_pw.data_ptr(), S, N, n_groups, span, int(split),
+            float(idle_w) if split else 0.0, outs[0].data_ptr(),
+            outs[1].data_ptr() if split else None, stream)
+    if err != 0:
+        raise RuntimeError(f"group_power: kernel launch failed with CUDA "
+                           f"error {err}")
+    kernels.LAUNCHES["group_power"] += 1
+    return tuple(outs) if split else outs[0]

@@ -50,6 +50,17 @@ def group_power_ref(node_pw: torch.Tensor, n_groups: int) -> torch.Tensor:
                                     node_pw.dtype, node_pw.device)
 
 
+def group_power_split_ref(node_pw: torch.Tensor, idle_w: float,
+                          n_groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32[..., N] -> (floor_g, dyn_g), each f32[..., G]: the group sums of
+    each node's idle floor ``min(p, idle)`` and of its dynamic share
+    ``p - floor``, as the reference's ``powercap.enforce_cap`` forms them
+    (two ``group_power_ref`` calls)."""
+    floor = torch.clamp(node_pw, max=idle_w)
+    return (group_power_ref(floor, n_groups),
+            group_power_ref(node_pw - floor, n_groups))
+
+
 @functools.lru_cache(maxsize=32)
 def _hall_matrix(hall_of_group: tuple, n_halls: int, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:

@@ -44,6 +44,18 @@ def node_power(system: SystemConfig, table: JobTable, node_job: torch.Tensor,
     return torch.where(node_job >= 0, p, system.power.idle_node_w)
 
 
+def sum_exact(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, accumulated in float64 and rounded once to
+    ``x``'s type. For the engine's float32 powers, heats and flows the
+    float64 sum is exact (a few tens of integer bits plus float32's
+    fraction bits fit in 53), so the result does not depend on the
+    reduction order, which on the card changes with the batch size: a
+    sweep row then equals a solo run."""
+    return x.sum(-1, dtype=torch.float64).to(x.dtype)
+
+
 def system_it_power(node_pw: torch.Tensor) -> torch.Tensor:
-    """Total IT power per scenario (W): f32[S, N] -> f32[S]."""
-    return node_pw.sum(-1)
+    """Total IT power per scenario (W): f32[S, N] -> f32[S], summed
+    exactly (``sum_exact``): the cap-aware admission compares it with the
+    cap, so a row's decision must not depend on the batch size."""
+    return sum_exact(node_pw)

@@ -1,12 +1,15 @@
 """Parity of the port's power-topology kernel module with the JAX package.
 
-On the CPU the port's ``fused_cooling``/``fused_cooling_hier`` take their
-plain versions; the JAX side runs its Pallas kernel in interpret mode,
-as its own tests do, and its ``ref.py`` oracles. Tolerance rtol = atol =
-1e-4, the reference's own kernel bound (tests/test_cooling.py): the two
-frameworks sum a group's nodes in different orders. The integer maps and
-the hall max are exact. The CUDA kernel itself is held to its plain
-version on the card (``chip_smoke.py`` and the card-only test below).
+On the CPU the port's ``fused_cooling``/``fused_cooling_hier`` and
+``group_power``/``group_power_split`` take their plain versions; the JAX
+side runs its Pallas kernels in interpret mode, as its own tests do, and
+its ``ref.py`` oracles. Tolerances: rtol = atol = 1e-4 for the fused
+cooling step, the reference's own bound (tests/test_cooling.py); rtol
+1e-5 for the group sums, the reference's own (tests/test_kernels.py):
+the two frameworks sum a group's nodes in different orders. The integer
+maps and the hall max are exact. The CUDA kernels themselves are held to
+their plain versions on the card (``chip_smoke.py`` and the card-only
+tests below).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ from repro.kernels.power_topo import ops as jops
 from repro.kernels.power_topo import ref as jref
 from repro.systems.config import FacilityTopology
 from repro_torch.kernels.power_topo import ops as tops
+from repro_torch.kernels.power_topo import power_topo
 from repro_torch.kernels.power_topo import ref as tref
 
 from test_torch_common import as_np, assert_exact
@@ -118,3 +122,74 @@ def test_kernel_matches_plain_version_on_the_card():
         torch.cuda.synchronize()
         for name, g, w in zip(NAMES, got, want):
             torch.testing.assert_close(g, w, **TOL, msg=name)
+
+
+GROUP_SHAPES = [(64, 4), (980, 10), (356, 4), (129, 7)]
+
+
+@pytest.mark.parametrize("N,G", GROUP_SHAPES)
+@pytest.mark.parametrize("S", [1, 3])
+def test_group_power_matches_jax_kernel_and_ref(S, N, G):
+    x = np.random.default_rng(N + G + S).uniform(
+        0.0, 3000.0, (S, N)).astype(np.float32)
+    pallas = jops.group_power(jnp.asarray(x), G, use_pallas=True,
+                              interpret=True)
+    oracle = jref.group_power_ref(jnp.asarray(x), G)
+    got = tops.group_power(torch.from_numpy(x), G)
+    assert got.shape == (S, G) and got.dtype == torch.float32
+    np.testing.assert_allclose(as_np(got), np.asarray(pallas), rtol=1e-5)
+    np.testing.assert_allclose(as_np(got), np.asarray(oracle), rtol=1e-5)
+
+
+@pytest.mark.parametrize("N,G", GROUP_SHAPES)
+def test_group_power_split_matches_two_jax_calls(N, G):
+    """The split's floor and dynamic sums against the reference's two
+    ``group_power`` calls on ``min(p, idle)`` and ``p - floor`` (what
+    ``grid.powercap.enforce_cap`` does), with nodes on both sides of the
+    idle floor and exactly on it."""
+    idle = 240.0
+    rng = np.random.default_rng(N * G)
+    x = rng.uniform(0.0, 2200.0, (3, N)).astype(np.float32)
+    x[:, ::5] = idle
+    floor = jnp.minimum(jnp.asarray(x), idle)
+    dyn = jnp.asarray(x) - floor
+    floor_g, dyn_g = tops.group_power_split(torch.from_numpy(x), idle, G)
+    for got, arr, name in ((floor_g, floor, "floor"), (dyn_g, dyn, "dyn")):
+        for want in (jops.group_power(arr, G, use_pallas=True,
+                                      interpret=True),
+                     jref.group_power_ref(arr, G)):
+            np.testing.assert_allclose(as_np(got), np.asarray(want),
+                                       rtol=1e-5, err_msg=name)
+    # the floors and the dynamic shares add up to the plain group sum
+    np.testing.assert_allclose(as_np(floor_g + dyn_g),
+                               as_np(tops.group_power(torch.from_numpy(x), G)),
+                               rtol=1e-5)
+
+
+def test_group_power_wrapper_rejects_bad_inputs():
+    """The CUDA wrapper validates type, shape and device before anything
+    else, and never takes a CPU tensor (the CPU path is the plain
+    version)."""
+    for bad, match in [(torch.ones(2, 40, dtype=torch.float64), "float32"),
+                       (torch.ones(40), "shape"),
+                       (torch.ones(2, 40), "CUDA")]:
+        with pytest.raises(ValueError, match=match):
+            power_topo.group_power_cuda(bad, 4)
+        with pytest.raises(ValueError, match=match):
+            power_topo.group_power_cuda(bad, 4, idle_w=240.0)
+
+
+def test_group_power_kernel_matches_plain_version_on_the_card():
+    """The CUDA kernel, both modes, against its plain version at the grid
+    sweep's Frontier shape and a ragged span (rtol 1e-5, atol 1e-3 W)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    for S, N, G in [(12, 9600, 25), (12, 9601, 25), (3, 10, 8)]:
+        x = torch.from_numpy(np.random.default_rng(N).uniform(
+            0.0, 3200.0, (S, N)).astype(np.float32)).cuda()
+        got = (tops.group_power(x, G), *tops.group_power_split(x, 700.0, G))
+        want = (tref.group_power_ref(x, G),
+                *tref.group_power_split_ref(x, 700.0, G))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
