@@ -4,9 +4,8 @@
 
 Builds every Hopper kernel of the port from the sources in this checkout
 (one ``nvcc`` per source, all at once), holds each against its plain
-PyTorch version on the card and times it, then drives the port's two
-paths through ``repro_torch.core.engine`` at full width and checks what
-comes out:
+PyTorch version on the card and times it, then drives the port's paths
+through their entry points at full width and checks what comes out:
 
 * the no-grid Frontier scenario sweep (9,600 nodes, 25 CDU groups, 1,238
   jobs, 6 h = 1,440 steps, 8 scenarios), which runs the fused cooling
@@ -15,6 +14,10 @@ comes out:
   under synthetic carbon, price and power-cap signals (the evening cap
   dip in the last 3 h), 12 (cap level x policy x weight) scenarios, which
   runs the group-power kernel once a step;
+* LM serving (``repro_torch.launch.serve_lm``) of qwen2.5-3b, rwkv6-7b
+  and zamba2-7b at full width, one after another: 4 prompts of 512
+  tokens and 16 greedy decode steps, whose prefills run the flash
+  attention, WKV and SSD kernels, with a float32 self-check of each;
 
 and a small card-against-CPU check of each path. Any failed phase exits
 non-zero; nothing is caught and passed over. The last line is the JSON
@@ -50,15 +53,29 @@ from repro_torch.cooling import model as cooling  # noqa: E402
 from repro_torch.datasets import loaders  # noqa: E402
 from repro_torch.datasets.synthetic import WorkloadSpec, generate  # noqa: E402
 from repro_torch.grid import signals as gsig  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.power_topo import ops as topo_ops  # noqa: E402
 from repro_torch.kernels.power_topo import power_topo  # noqa: E402
 from repro_torch.kernels.power_topo import ref as topo_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv  # noqa: E402
+from repro_torch.launch import serve_lm  # noqa: E402
 from repro_torch.launch.simulate import build_system  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models.zoo import get_api  # noqa: E402
 from repro_torch.systems.config import FacilityTopology, get_system  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 F32_FLOP_S = 67e12           # H100 SXM float32 rate outside tensor cores
+BF16_FLOP_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 KERNEL_TOL = 1e-4            # rtol = atol: the reference's own kernel bound
 GROUP_RTOL, GROUP_ATOL = 1e-5, 1e-3   # group sums: the reference's rtol, 1 mW
 SWEEP = [("fcfs", "easy"), ("fcfs", "none"), ("sjf", "first-fit"),
@@ -156,11 +173,12 @@ def check_kernel(label, sysc, S, N, G, H, seed):
 def build_phase():
     """Build every kernel from source, one nvcc per source, all at once."""
     t = time.perf_counter()
-    libs = power_topo.build(*power_topo.SOURCES)
+    libs = _build.build_all(power_topo.LIB, flash_attention.LIB,
+                            rwkv6_wkv.LIB, mamba2_ssd.LIB)
     print(f"build: {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t:.2f} s (nvcc "
-          f"{' '.join(power_topo.NVCC_FLAGS)})")
-    for name, log in power_topo.build_logs.items():
+          f"{' '.join(_build.NVCC_FLAGS)})")
+    for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
@@ -508,6 +526,306 @@ def small_grid_reference():
           f"constant cap): card matches the CPU engine, schedules exact, "
           f"floats within 1e-4; {throttled} throttled scenario-steps")
 
+# ---------------------------------------------------------------------------
+# The LM serving path's kernels: flash attention, WKV, SSD.
+# ---------------------------------------------------------------------------
+# Tolerances of kernel vs plain version on the card (rtol = atol). float32:
+# the reference's own bounds (tests/test_kernels.py): 2e-5 for attention,
+# 2e-4 for WKV and 3e-4 for SSD, whose kernels run the per-token recurrence
+# against the plain chunked form. bfloat16: both versions compute in
+# float32 from the same bf16 inputs and round the output once to bf16, so
+# they may differ by one bf16 ulp (at most 2^-7 relative: rtol 1e-2, with
+# atol 1e-2 for values near 0); WKV's final state and all of SSD's outputs
+# are float32 and keep the float32 bounds.
+LM_TOL = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 1e-2},
+          "wkv": {torch.float32: 2e-4, torch.bfloat16: 1e-2},
+          "wkv_state": {torch.float32: 2e-4, torch.bfloat16: 2e-4},
+          "ssd": {torch.float32: 3e-4, torch.bfloat16: 3e-4}}
+LM_DTYPES = (torch.bfloat16, torch.float32)
+
+def gen(seed):
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+def close(label, got, want, tol):
+    """Assert kernel output ``got`` equals the plain ``want`` within
+    rtol = atol = ``tol``; returns the largest absolute error."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.isfinite(got).all():
+        raise SystemExit(f"{label}: bad output {tuple(got.shape)} "
+                         f"{got.dtype} (want {tuple(want.shape)} "
+                         f"{want.dtype}), finite={bool(torch.isfinite(got).all())}")
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"{label}: {m}")
+    return float((got.float() - want.float()).abs().max())
+
+def attn_inputs(B, S, Tk, H, KV, hd, dtype, seed):
+    g = gen(seed)
+    return (torch.randn((B, S, H, hd), generator=g, device=DEV).to(dtype),
+            torch.randn((B, Tk, KV, hd), generator=g, device=DEV).to(dtype),
+            torch.randn((B, Tk, KV, hd), generator=g, device=DEV).to(dtype))
+
+def wkv_inputs(B, S, H, hd, dtype, seed):
+    """The reference test's distributions (tests/test_kernels.py)."""
+    g = gen(seed)
+    n = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    return ((n(B, S, H, hd) * 0.5).to(dtype), (n(B, S, H, hd) * 0.5).to(dtype),
+            n(B, S, H, hd).to(dtype),
+            torch.sigmoid(n(B, S, H, hd) - 1.0) * 0.97 + 0.02,
+            n(H, hd) * 0.3)
+
+def ssd_inputs(Bz, S, H, P, N, dtype, seed):
+    """The reference test's distributions (tests/test_kernels.py)."""
+    g = gen(seed)
+    n = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    sp = torch.nn.functional.softplus
+    return (n(Bz, S, H, P).to(dtype), sp(n(Bz, S, H)),
+            torch.exp(-sp(n(Bz, S, H))), (n(Bz, S, N) * 0.5).to(dtype),
+            (n(Bz, S, N) * 0.5).to(dtype))
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" | "operations"): the least time for the work."""
+    tb, to = n_bytes / HBM_BYTES_S, n_ops / BF16_FLOP_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+def timing(card, name, shape, kernel, plain, library, n_bytes, n_ops):
+    """Graph and eager times of the kernel, its plain version and (where
+    there is one) the library call; returns the kernels-line numbers."""
+    ms = graph_ms(kernel, iters=20, reps=5)
+    plain_ms = graph_ms(plain, iters=5, reps=3)
+    lib_ms = graph_ms(library, iters=20, reps=5) if library else None
+    eager = {"kernel": cuda_ms(kernel, iters=20, warmup=3),
+             "plain": cuda_ms(plain, iters=5, warmup=2)}
+    if library:
+        eager["library"] = cuda_ms(library, iters=20, warmup=3)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"[{card}] {name} {shape} on the card (CUDA graph): kernel {ms!r} "
+          f"ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, bound "
+          f"{bound_ms!r} ms ({bound_by}: {n_bytes} B, {n_ops} flops), "
+          f"{ms / bound_ms!r}x its bound")
+    print(f"[{card}] {name} per eager call, host included: "
+          + ", ".join(f"{k} {v!r} ms" for k, v in eager.items()))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+def flash_phase(card):
+    """Flash attention against its plain version at qwen2.5-3b's (H=16,
+    KV=2, hd=128) and zamba2-7b's (H=32 MHA, hd=112) prefill shapes,
+    serve_lm's ragged 32-token prompt, a sliding window and S < T."""
+    cases = [("qwen2.5-3b", 4, 512, 512, 16, 2, 128, 0),
+             ("qwen2.5-3b prompt 32", 4, 32, 32, 16, 2, 128, 0),
+             ("zamba2-7b", 4, 512, 512, 32, 32, 112, 0),
+             ("zamba2-7b prompt 32", 4, 32, 32, 32, 32, 112, 0),
+             ("window 200", 2, 512, 512, 16, 2, 128, 200),
+             ("S=100 < T=300", 2, 100, 300, 8, 2, 64, 0)]
+    err = 0.0
+    for dtype in LM_DTYPES:
+        for i, (label, B, S, Tk, H, KV, hd, win) in enumerate(cases):
+            q, k, v = attn_inputs(B, S, Tk, H, KV, hd, dtype, 20 + i)
+            e = close(f"flash_attention {label} {dtype}",
+                      fa_ops.mha(q, k, v, True, win),
+                      fa_ref.mha_ref(q, k, v, True, win),
+                      LM_TOL["flash_attention"][dtype])
+            err = max(err, e) if dtype == torch.bfloat16 else err
+            print(f"kernel flash_attention {label} B={B} S={S} T={Tk} H={H} "
+                  f"KV={KV} hd={hd} window={win} {dtype}: max_abs_err={e!r} "
+                  f"(rtol=atol={LM_TOL['flash_attention'][dtype]})")
+    entry = dict(name="flash_attention", route="cuda",
+                 source="src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention/"
+                 "flash_attention.py:90", launches=None, max_abs_err=err)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, B, S, H, KV, hd in (("qwen2.5-3b", 4, 512, 16, 2, 128),
+                                   ("zamba2-7b", 4, 512, 32, 32, 112)):
+        q, k, v = attn_inputs(B, S, S, H, KV, hd, torch.bfloat16, 30)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = B * H * S * (S + 1) // 2          # causal (query, key) pairs
+        n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        t = timing(card, "flash_attention", f"{label} B={B} S={S} bf16",
+                   lambda: fa_ops.mha(q, k, v),
+                   lambda: fa_ref.mha_ref(q, k, v),
+                   lambda: sdpa(qt, kt, vt, is_causal=True,
+                                enable_gqa=KV != H),
+                   n_bytes, 4 * hd * pairs)
+        if label == "qwen2.5-3b":
+            entry.update(t)
+    return entry
+
+def wkv_phase(card):
+    """WKV against its plain chunked version at rwkv6-7b's prefill shape
+    (H=64, hd=64, S=512), serve_lm's 32-token prompt and a ragged S=45."""
+    err = 0.0
+    for dtype in LM_DTYPES:
+        for i, (B, S) in enumerate(((4, 512), (4, 32), (2, 45))):
+            r, k, v, w, u = wkv_inputs(B, S, 64, 64, dtype, 40 + i)
+            y, st = wkv_ops.wkv(r, k, v, w, u)
+            y0, st0 = wkv_ref.wkv_chunked(r, k, v, w, u)
+            e = close(f"wkv y B={B} S={S} {dtype}", y, y0,
+                      LM_TOL["wkv"][dtype])
+            es = close(f"wkv state B={B} S={S} {dtype}", st, st0,
+                       LM_TOL["wkv_state"][dtype])
+            if dtype == torch.bfloat16:
+                err = max(err, e, es)
+            print(f"kernel wkv B={B} S={S} H=64 hd=64 {dtype}: y "
+                  f"max_abs_err={e!r} (rtol=atol={LM_TOL['wkv'][dtype]}), "
+                  f"state max_abs_err={es!r} (rtol=atol="
+                  f"{LM_TOL['wkv_state'][dtype]})")
+    B, S, H, hd = 4, 512, 64, 64
+    r, k, v, w, u = wkv_inputs(B, S, H, hd, torch.bfloat16, 45)
+    n = B * S * H * hd
+    t = timing(card, "wkv", f"B={B} S={S} H={H} hd={hd} bf16",
+               lambda: wkv_ops.wkv(r, k, v, w, u),
+               lambda: wkv_ref.wkv_chunked(r, k, v, w, u), None,
+               3 * 2 * n + 4 * n + 4 * H * hd + 2 * n + 4 * B * H * hd * hd,
+               5 * n * hd)
+    return dict(name="wkv", route="cuda",
+                source="src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu",
+                replaces="src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:68",
+                launches=None, max_abs_err=err, **t)
+
+def ssd_phase(card):
+    """SSD against its plain chunked version at zamba2-7b's prefill shape
+    (H=112, P=64, N=64, S=512), serve_lm's 32-token prompt and a ragged
+    S=45 with an odd head count."""
+    err = 0.0
+    for dtype in LM_DTYPES:
+        for i, (Bz, S, H) in enumerate(((4, 512, 112), (4, 32, 112),
+                                        (2, 45, 7))):
+            x, dt, a, Bm, Cm = ssd_inputs(Bz, S, H, 64, 64, dtype, 50 + i)
+            y, st = ssd_ops.ssd(x, dt, a, Bm, Cm)
+            y0, st0 = ssd_ref.ssd_chunked(x, dt, a, Bm, Cm)
+            tol = LM_TOL["ssd"][dtype]
+            e = close(f"ssd y Bz={Bz} S={S} {dtype}", y, y0, tol)
+            es = close(f"ssd state Bz={Bz} S={S} {dtype}", st, st0, tol)
+            if dtype == torch.bfloat16:
+                err = max(err, e, es)
+            print(f"kernel ssd Bz={Bz} S={S} H={H} P=64 N=64 {dtype}: y "
+                  f"max_abs_err={e!r}, state max_abs_err={es!r} "
+                  f"(rtol=atol={tol})")
+    Bz, S, H, P, N = 4, 512, 112, 64, 64
+    x, dt, a, Bm, Cm = ssd_inputs(Bz, S, H, P, N, torch.bfloat16, 55)
+    n = Bz * S * H * P
+    t = timing(card, "ssd", f"Bz={Bz} S={S} H={H} P={P} N={N} bf16",
+               lambda: ssd_ops.ssd(x, dt, a, Bm, Cm),
+               lambda: ssd_ref.ssd_chunked(x, dt, a, Bm, Cm), None,
+               2 * n + 2 * 4 * Bz * S * H + 2 * 2 * Bz * S * N + 4 * n +
+               4 * Bz * H * P * N, 5 * n * N)
+    return dict(name="ssd", route="cuda",
+                source="src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
+                replaces="src/repro/kernels/mamba2_ssd/mamba2_ssd.py:59",
+                launches=None, max_abs_err=err, **t)
+
+# ---------------------------------------------------------------------------
+# LM serving at full width: qwen2.5-3b, rwkv6-7b, zamba2-7b.
+# ---------------------------------------------------------------------------
+LM_ARCHS = ["qwen2.5-3b", "rwkv6-7b", "zamba2-7b"]
+# kernel launches of one prefill (the decode runs no kernel): a flash
+# attention per layer; a WKV per layer; an SSD per Mamba2 layer and a
+# flash attention per shared-block call (81 layers, every 6th: 13 calls)
+LM_LAUNCHES = {"qwen2.5-3b": {"flash_attention": 36},
+               "rwkv6-7b": {"wkv": 32},
+               "zamba2-7b": {"ssd": 81, "flash_attention": 13}}
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 16
+SELF_TOL = 4e-3      # the JAX package's recurrent-vs-parallel bound
+
+def self_check(arch, api, params, prompts):
+    """Whole path in float32 at full width (dtype replaced, widths and
+    depths unchanged): prefill(S) and one decode step against the last
+    logits of prefill(S + 1), at the JAX package's own 4e-3."""
+    cfg32 = dataclasses.replace(api.cfg, dtype=torch.float32)
+    api32 = get_api(cfg32)
+    nxt = prompts[:, :1].flip(0)
+    _, state = api32.prefill(params, {"tokens": prompts}, LM_PROMPT + 1)
+    dec, _ = api32.decode(params, nxt[:, 0], state)
+    full, _ = api32.prefill(params, {"tokens": torch.cat([prompts, nxt], 1)},
+                            LM_PROMPT + 1)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        raise SystemExit(f"{arch}: float32 self-check logits not finite")
+    torch.testing.assert_close(dec, full, rtol=SELF_TOL, atol=SELF_TOL,
+                               msg=lambda m: f"{arch} f32 self-check: {m}")
+    err = float((dec - full).abs().max())
+    print(f"{arch}: float32 full-width self-check, prefill({LM_PROMPT}) + "
+          f"decode vs prefill({LM_PROMPT + 1}): max_abs_err={err!r} "
+          f"(rtol=atol={SELF_TOL}; logits up to {float(full.abs().max())!r})")
+
+def serve_path(card, entries):
+    """Each arch in turn: the counted serving run through
+    ``serve_lm.serve`` (prefill of 4 x 512 tokens, 16 greedy decode
+    steps, bf16 as configured), then prefill time, decode rate and peak
+    memory, the float32 self-check, and the model freed."""
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        api = get_api(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        toks, wall, launches = run_counted(lambda: serve_lm.serve(
+            arch, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN))
+        want = {k: LM_LAUNCHES[arch].get(k, 0) for k in kernels.LAUNCHES}
+        if launches != want:
+            raise SystemExit(f"{arch}: one prefill launched {launches}, "
+                             f"want {want}")
+        for k, n in launches.items():
+            total[k] += n
+        if toks.shape != (LM_BATCH, LM_GEN) or not \
+                ((toks >= 0) & (toks < cfg.vocab)).all():
+            raise SystemExit(f"{arch}: bad tokens {toks.shape}")
+        params = api.init(torch.Generator(device=DEV).manual_seed(0), DEV)
+        g = torch.Generator(device=DEV).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                generator=g, device=DEV)
+        _, logits, dec_s = serve_lm.generate(api, params, prompts, LM_GEN)
+        if tuple(logits.shape) != (LM_BATCH, LM_GEN + 1, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            raise SystemExit(f"{arch}: logits {tuple(logits.shape)} not "
+                             f"finite")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            api.prefill(params, {"tokens": prompts}, LM_PROMPT + LM_GEN)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        prefill_ms = 1e3 * sum(times) / len(times)
+        prefill_tok_s = LM_BATCH * LM_PROMPT / (prefill_ms / 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{card}] {arch} ({cfg.param_count / 1e9:.2f} B params f32, "
+              f"{cfg.n_layers} layers, d_model {cfg.d_model}) batch "
+              f"{LM_BATCH} x prompt {LM_PROMPT}: launches {launches}; "
+              f"prefill {prefill_ms!r} ms ({prefill_tok_s!r} tok/s); "
+              f"decode {LM_GEN} steps "
+              f"{dec_s!r} s = {LM_BATCH * LM_GEN / dec_s!r} tok/s; peak "
+              f"memory {peak!r} GiB; serve wall {wall!r} s; sample "
+              f"{toks[0][:8].tolist()}")
+        self_check(arch, api, params, prompts)
+        del params, logits
+        torch.cuda.empty_cache()
+    for e in entries:
+        e["launches"] = total[e["name"]]
+    print(f"LM serving launches in all: {total}")
+
+def small_lm_reference():
+    """Each smoke arch on the card against the CPU: the same weights
+    (drawn on the CPU, copied over), the CPU's greedy tokens fed to both
+    (teacher forcing), prefill and every decode step's logits at 1e-4."""
+    for arch in serve_lm.ARCHS:
+        api = get_api(get_config(arch))
+        params = api.init(torch.Generator().manual_seed(0), "cpu")
+        prompts = torch.randint(0, api.cfg.vocab, (4, 32),
+                                generator=torch.Generator().manual_seed(1))
+        toks, want, _ = serve_lm.generate(api, params, prompts, 16)
+        on_card = lambda t: {k: on_card(v) for k, v in t.items()} \
+            if isinstance(t, dict) else [on_card(v) for v in t] \
+            if isinstance(t, list) else t.to(DEV)
+        _, got, _ = serve_lm.generate(api, on_card(params), prompts.to(DEV),
+                                      16, forced=toks.to(DEV))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{arch} card vs CPU: {m}")
+        print(f"small LM reference {arch} (batch 4, prompt 32, 16 steps): "
+              f"card matches the CPU at 1e-4, max_abs_err="
+              f"{float((got.cpu() - want).abs().max())!r}")
+
 def main():
     t_start = time.perf_counter()
     card = nvidia_smi()
@@ -515,16 +833,31 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
+    # full float32 products for the plain versions and the f32 checks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    elapsed = lambda what: print(f"chip_smoke: {what} done at "
+                                 f"{time.perf_counter() - t_start:.1f} s")
     build_phase()
     fused = kernel_phase(card)
     group = group_kernel_phase(card)
+    lm = [flash_phase(card), wkv_phase(card), ssd_phase(card)]
+    elapsed("build and kernel checks")
     main_path(card, fused)
+    elapsed("frontier-sweep-6h")
     grid_path(card, group)
+    elapsed("frontier-grid-6h")
+    serve_path(card, lm)
+    elapsed("LM serving")
     small_reference()
     small_grid_reference()
+    small_lm_reference()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [fused, group]}))
+    print(json.dumps({"kernels": [fused, group, *lm]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.cooling import model as cooling
 from repro_torch.core import accounts as acct_mod
 from repro_torch.core import resource_manager as rm
@@ -262,21 +263,11 @@ def _history(system: SystemConfig, rows: list[dict]) -> T.StepRecord:
         nodes_down=z.clone(), n_killed=z)
 
 
-def _device(device) -> torch.device:
-    """The device an entry point runs on: never the CPU unless asked for,
-    so a CUDA request without a card raises instead of carrying on."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("repro_torch: no CUDA device is available; pass "
-                           "device='cpu' to run on the CPU")
-    return dev
-
-
 def _run(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
          t0: float, t1: float, accounts, num_accounts: int, signals, device
          ) -> Tuple[T.SimState, T.StepRecord]:
     """Scan the batched engine step from ``init_state`` over [t0, t1)."""
-    dev = _device(device)
+    dev = resolve_device(device)
     n_steps = int(round((t1 - t0) / system.dt))
     backfills = tuple(sorted(set(scen.backfill.tolist())))
     table = table.to(dev)

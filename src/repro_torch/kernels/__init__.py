@@ -5,4 +5,5 @@ where it launches its kernel, so a run can show that its path went
 through the kernel (``chip_smoke.py`` zeroes the counts before the main
 path and reads them after).
 """
-LAUNCHES: dict[str, int] = {"fused_cooling": 0, "group_power": 0}
+LAUNCHES: dict[str, int] = {"fused_cooling": 0, "group_power": 0,
+                             "flash_attention": 0, "wkv": 0, "ssd": 0}

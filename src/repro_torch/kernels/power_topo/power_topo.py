@@ -3,41 +3,24 @@
 ``csrc/fused_cooling.cu`` replaces the Pallas TPU kernel
 ``fused_cooling_pallas`` and ``csrc/group_power.cu`` replaces
 ``group_power_pallas`` (both in ``repro/kernels/power_topo/power_topo.py``).
-Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C entry point at first use, into ``build/`` beside this module
-(a directory git ignores), and bound with ``ctypes``. Nothing here runs at
-import time, so the CPU-only tests can import the module.
+``kernels._build`` compiles each source for ``sm_90a`` at first use and
+binds it with ``ctypes``.
 
 The wrappers take CUDA tensors only; the CPU path is ``ref.py``, chosen by
 ``ops`` from the tensor's device.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import F as _F, I as _I, L as _L, P as _P
 from repro_torch.kernels.power_topo.ref import CduParams, slew_factors
 
-_HERE = pathlib.Path(__file__).resolve().parent
-SOURCES = ("fused_cooling", "group_power")    # csrc/<name>.cu, one library each
-BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
-
-_libs: dict = {}     # name -> the loaded library, once built
-build_logs: dict = {}  # name -> nvcc's output of its last build (ptxas use)
-
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
-_ARGTYPES = {
+LIB = _build.Library(pathlib.Path(__file__).parent, {
     "fused_cooling": [
         _P, _I, _I, _I, _I,                 # node_pw, S, N, G, span
         _P, _P, _P, _L, _L, _P, _L, _L,     # t_sup, mdot, tb(+strides), tset(+strides)
@@ -47,65 +30,7 @@ _ARGTYPES = {
         _P, _I, _I, _I, _I,                 # node_pw, S, N, G, span
         _I, _F,                             # split flag, idle floor (W)
         _P, _P, _P],                        # 2 outputs, stream
-}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or \
-        "/usr/local/cuda"
-    return str(pathlib.Path(home) / "bin" / "nvcc")
-
-
-def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
-    """(source, library path) of kernel ``name``; the library's name
-    carries a digest of the source and the flags."""
-    src = _HERE / "csrc" / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def build(*names: str) -> dict:
-    """Compile the named kernels (all of ``SOURCES`` when none is named)
-    whose source and flags have not been built yet, one ``nvcc`` process
-    per source, all started together. Returns {name: library path};
-    raises once every process has ended if any ``nvcc`` failed."""
-    names = names or SOURCES
-    running = {}
-    for name in names:
-        src, out = _target(name)
-        if out.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        running[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in running.items():
-        build_logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(name)
-        else:
-            os.replace(tmp, out)   # atomic: no process loads a partial file
-    if failed:
-        raise RuntimeError("nvcc failed on " + ", ".join(
-            f"csrc/{n}.cu:\n{build_logs[n]}" for n in failed))
-    return {name: _target(name)[1] for name in names}
-
-
-def _library(name: str):
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build(name)[name]))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
+})
 
 
 def fused_cooling_cuda(node_pw: torch.Tensor, t_supply: torch.Tensor,
@@ -148,20 +73,15 @@ def fused_cooling_cuda(node_pw: torch.Tensor, t_supply: torch.Tensor,
     a_valve, a_hx = slew_factors(p)
     outs = [torch.empty((S, n_groups), dtype=torch.float32, device=dev)
             for _ in range(4)]
-    lib = _library("fused_cooling")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_cooling_launch(
-            node_pw.data_ptr(), S, N, n_groups, span,
-            t_supply.data_ptr(), mdot.data_ptr(),
-            t_basin.data_ptr(), t_basin.stride(0), t_basin.stride(1),
-            t_set.data_ptr(), t_set.stride(0), t_set.stride(1),
-            a_valve, a_hx, p.cp_j_kg_k, p.cp_j_kg_k * p.delta_t_design_c,
-            p.ua_w_k, p.mdot_min_kg_s, p.mdot_max_kg_s,
-            *(o.data_ptr() for o in outs), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_cooling: kernel launch failed with CUDA "
-                           f"error {err}")
+    _build.launch(
+        LIB, "fused_cooling", dev,
+        node_pw.data_ptr(), S, N, n_groups, span,
+        t_supply.data_ptr(), mdot.data_ptr(),
+        t_basin.data_ptr(), t_basin.stride(0), t_basin.stride(1),
+        t_set.data_ptr(), t_set.stride(0), t_set.stride(1),
+        a_valve, a_hx, p.cp_j_kg_k, p.cp_j_kg_k * p.delta_t_design_c,
+        p.ua_w_k, p.mdot_min_kg_s, p.mdot_max_kg_s,
+        *(o.data_ptr() for o in outs))
     kernels.LAUNCHES["fused_cooling"] += 1
     return tuple(outs)
 
@@ -199,15 +119,10 @@ def group_power_cuda(node_pw: torch.Tensor, n_groups: int,
     dev = node_pw.device
     outs = [torch.empty((S, n_groups), dtype=torch.float32, device=dev)
             for _ in range(2 if split else 1)]
-    lib = _library("group_power")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.group_power_launch(
-            node_pw.data_ptr(), S, N, n_groups, span, int(split),
-            float(idle_w) if split else 0.0, outs[0].data_ptr(),
-            outs[1].data_ptr() if split else None, stream)
-    if err != 0:
-        raise RuntimeError(f"group_power: kernel launch failed with CUDA "
-                           f"error {err}")
+    _build.launch(
+        LIB, "group_power", dev,
+        node_pw.data_ptr(), S, N, n_groups, span, int(split),
+        float(idle_w) if split else 0.0, outs[0].data_ptr(),
+        outs[1].data_ptr() if split else None)
     kernels.LAUNCHES["group_power"] += 1
     return tuple(outs) if split else outs[0]
