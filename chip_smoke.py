@@ -531,17 +531,26 @@ def small_grid_reference():
 # ---------------------------------------------------------------------------
 # Tolerances of kernel vs plain version on the card (rtol = atol). float32:
 # the reference's own bounds (tests/test_kernels.py): 2e-5 for attention,
-# 2e-4 for WKV and 3e-4 for SSD, whose kernels run the per-token recurrence
-# against the plain chunked form. bfloat16: both versions compute in
-# float32 from the same bf16 inputs and round the output once to bf16, so
-# they may differ by one bf16 ulp (at most 2^-7 relative: rtol 1e-2, with
-# atol 1e-2 for values near 0); WKV's final state and all of SSD's outputs
-# are float32 and keep the float32 bounds.
+# 2e-4 for WKV and 3e-4 for SSD, whose float32 kernels run the per-token
+# recurrence against the plain chunked form. bfloat16: both versions round
+# the output once to bf16, so they may differ by one bf16 ulp (at most
+# 2^-7 relative: rtol 1e-2, with atol 1e-2 for values near 0); the
+# tensor-core flash kernel also rounds P to bf16 before P.V (2^-9 relative
+# per weight, well inside). WKV's final state and all of SSD's outputs are
+# float32 and keep the float32 bounds: the bf16 SSD kernel's chunked
+# products split every f32 operand into a bf16 pair (about 2^-17).
 LM_TOL = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 1e-2},
           "wkv": {torch.float32: 2e-4, torch.bfloat16: 1e-2},
           "wkv_state": {torch.float32: 2e-4, torch.bfloat16: 2e-4},
           "ssd": {torch.float32: 3e-4, torch.bfloat16: 3e-4}}
 LM_DTYPES = (torch.bfloat16, torch.float32)
+# Device times of the kernels the tensor-core ones replaced on the bf16
+# path (the CUDA-core flash kernel and the per-token SSD recurrence, as
+# of commit 38e3238; PERF.md section 6), printed beside the new ones.
+BEFORE_MS = {("flash_attention", "qwen2.5-3b"): 0.40369022369384766,
+             ("flash_attention", "zamba2-7b"): 0.6393235015869141,
+             ("ssd", "zamba2-7b"): 0.35346622467041017}
+BEFORE_LABEL = "commit 38e3238 on NVIDIA H100 80GB HBM3, 700.00 W"
 
 def gen(seed):
     return torch.Generator(device=DEV).manual_seed(seed)
@@ -588,9 +597,12 @@ def bound(n_bytes, n_ops):
     tb, to = n_bytes / HBM_BYTES_S, n_ops / BF16_FLOP_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
-def timing(card, name, shape, kernel, plain, library, n_bytes, n_ops):
+def timing(card, name, shape, kernel, plain, library, n_bytes, n_ops,
+           before_ms=None):
     """Graph and eager times of the kernel, its plain version and (where
-    there is one) the library call; returns the kernels-line numbers."""
+    there is one) the library call, with the ratio to the library call
+    and the replaced kernel's time where given; returns the kernels-line
+    numbers."""
     ms = graph_ms(kernel, iters=20, reps=5)
     plain_ms = graph_ms(plain, iters=5, reps=3)
     lib_ms = graph_ms(library, iters=20, reps=5) if library else None
@@ -603,6 +615,13 @@ def timing(card, name, shape, kernel, plain, library, n_bytes, n_ops):
           f"ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, bound "
           f"{bound_ms!r} ms ({bound_by}: {n_bytes} B, {n_ops} flops), "
           f"{ms / bound_ms!r}x its bound")
+    if lib_ms:
+        print(f"[{card}] {name} {shape}: kernel / library = "
+              f"{ms / lib_ms!r}")
+    if before_ms:
+        print(f"[{card}] {name} {shape}: before {before_ms!r} ms "
+              f"({BEFORE_LABEL}) -> now {ms!r} ms, {before_ms / ms!r}x "
+              f"faster")
     print(f"[{card}] {name} per eager call, host included: "
           + ", ".join(f"{k} {v!r} ms" for k, v in eager.items()))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -611,13 +630,17 @@ def timing(card, name, shape, kernel, plain, library, n_bytes, n_ops):
 def flash_phase(card):
     """Flash attention against its plain version at qwen2.5-3b's (H=16,
     KV=2, hd=128) and zamba2-7b's (H=32 MHA, hd=112) prefill shapes,
-    serve_lm's ragged 32-token prompt, a sliding window and S < T."""
+    serve_lm's ragged 32-token prompt, a sliding window, S < T, a row past
+    a 64-row tile (S = T = 129) and hd=64 GQA (qwen2.5-0.5b's heads).
+    bfloat16 runs the tensor-core kernel, float32 the CUDA-core one."""
     cases = [("qwen2.5-3b", 4, 512, 512, 16, 2, 128, 0),
              ("qwen2.5-3b prompt 32", 4, 32, 32, 16, 2, 128, 0),
              ("zamba2-7b", 4, 512, 512, 32, 32, 112, 0),
              ("zamba2-7b prompt 32", 4, 32, 32, 32, 32, 112, 0),
              ("window 200", 2, 512, 512, 16, 2, 128, 200),
-             ("S=100 < T=300", 2, 100, 300, 8, 2, 64, 0)]
+             ("S=100 < T=300", 2, 100, 300, 8, 2, 64, 0),
+             ("S=T=129", 2, 129, 129, 16, 2, 128, 0),
+             ("hd=64 GQA", 4, 512, 512, 14, 2, 64, 0)]
     err = 0.0
     for dtype in LM_DTYPES:
         for i, (label, B, S, Tk, H, KV, hd, win) in enumerate(cases):
@@ -632,7 +655,7 @@ def flash_phase(card):
                   f"(rtol=atol={LM_TOL['flash_attention'][dtype]})")
     entry = dict(name="flash_attention", route="cuda",
                  source="src/repro_torch/kernels/flash_attention/csrc/"
-                 "flash_attention.cu",
+                 "flash_attention_tc.cu",
                  replaces="src/repro/kernels/flash_attention/"
                  "flash_attention.py:90", launches=None, max_abs_err=err)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -647,7 +670,8 @@ def flash_phase(card):
                    lambda: fa_ref.mha_ref(q, k, v),
                    lambda: sdpa(qt, kt, vt, is_causal=True,
                                 enable_gqa=KV != H),
-                   n_bytes, 4 * hd * pairs)
+                   n_bytes, 4 * hd * pairs,
+                   BEFORE_MS[("flash_attention", label)])
         if label == "qwen2.5-3b":
             entry.update(t)
     return entry
@@ -686,12 +710,13 @@ def wkv_phase(card):
 
 def ssd_phase(card):
     """SSD against its plain chunked version at zamba2-7b's prefill shape
-    (H=112, P=64, N=64, S=512), serve_lm's 32-token prompt and a ragged
-    S=45 with an odd head count."""
+    (H=112, P=64, N=64, S=512), serve_lm's 32-token prompt, a ragged S=45
+    with an odd head count and S=65 (one token past a chunk). bfloat16
+    runs the chunked tensor-core kernel, float32 the recurrence."""
     err = 0.0
     for dtype in LM_DTYPES:
         for i, (Bz, S, H) in enumerate(((4, 512, 112), (4, 32, 112),
-                                        (2, 45, 7))):
+                                        (2, 45, 7), (2, 65, 112))):
             x, dt, a, Bm, Cm = ssd_inputs(Bz, S, H, 64, 64, dtype, 50 + i)
             y, st = ssd_ops.ssd(x, dt, a, Bm, Cm)
             y0, st0 = ssd_ref.ssd_chunked(x, dt, a, Bm, Cm)
@@ -710,7 +735,8 @@ def ssd_phase(card):
                lambda: ssd_ops.ssd(x, dt, a, Bm, Cm),
                lambda: ssd_ref.ssd_chunked(x, dt, a, Bm, Cm), None,
                2 * n + 2 * 4 * Bz * S * H + 2 * 2 * Bz * S * N + 4 * n +
-               4 * Bz * H * P * N, 5 * n * N)
+               4 * Bz * H * P * N, 5 * n * N,
+               BEFORE_MS[("ssd", "zamba2-7b")])
     return dict(name="ssd", route="cuda",
                 source="src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
                 replaces="src/repro/kernels/mamba2_ssd/mamba2_ssd.py:59",
@@ -723,9 +749,13 @@ LM_ARCHS = ["qwen2.5-3b", "rwkv6-7b", "zamba2-7b"]
 # kernel launches of one prefill (the decode runs no kernel): a flash
 # attention per layer; a WKV per layer; an SSD per Mamba2 layer and a
 # flash attention per shared-block call (81 layers, every 6th: 13 calls)
-LM_LAUNCHES = {"qwen2.5-3b": {"flash_attention": 36},
+# (bf16: the tensor-core flash kernel; the float32 one launches nothing)
+LM_LAUNCHES = {"qwen2.5-3b": {"flash_attention_tc": 36},
                "rwkv6-7b": {"wkv": 32},
-               "zamba2-7b": {"ssd": 81, "flash_attention": 13}}
+               "zamba2-7b": {"ssd": 81, "flash_attention_tc": 13}}
+# the launch count of each kernels-line entry of the LM path
+LM_COUNTER = {"flash_attention": "flash_attention_tc", "wkv": "wkv",
+              "ssd": "ssd"}
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 16
 SELF_TOL = 4e-3      # the JAX package's recurrent-vs-parallel bound
 
@@ -802,7 +832,7 @@ def serve_path(card, entries):
         del params, logits
         torch.cuda.empty_cache()
     for e in entries:
-        e["launches"] = total[e["name"]]
+        e["launches"] = total[LM_COUNTER[e["name"]]]
     print(f"LM serving launches in all: {total}")
 
 def small_lm_reference():

@@ -1,7 +1,11 @@
-// Flash-attention forward (blockwise online softmax), for Hopper (sm_90a).
+// Flash-attention forward (blockwise online softmax) in float32 on the
+// CUDA cores, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `flash_attention` (`_kernel`) in
-// src/repro/kernels/flash_attention/flash_attention.py. Plain version:
+// src/repro/kernels/flash_attention/flash_attention.py for float32 inputs
+// (the full-width float32 self-checks and the smoke archs); bfloat16 goes
+// to the tensor-core kernel in flash_attention_tc.cu, chosen by dtype in
+// flash_attention.py. Plain version:
 // repro_torch/kernels/flash_attention/ref.py `mha_ref`.
 //
 //   out[b,s,h,:] = softmax_t(q[b,s,h,:] . k[b,t,h/G,:] / sqrt(hd)) v[b,t,h/G,:]
@@ -11,17 +15,17 @@
 // Masked logits are -1e30 as in the reference (a row with no visible key
 // then averages every value instead of giving NaN); keys past T are -inf.
 //
-// Bound, at the LM serving path's prefill (B=4, S=T=512; bf16): the causal
-// half of 4*B*H*S*T*hd/2 flops against reading q, k, v once and writing
-// out once: qwen2.5-3b (H=16, KV=2, hd=128) ~4.3 GFLOP (4.3 us at the
-// tensor cores' 989 TFLOP/s) and ~17.8 MB (5.3 us at 3.35 TB/s): bound by
-// bytes, barely. This first kernel does not use the tensor cores: it
-// computes with float32 FMAs on the CUDA cores (67 TFLOP/s peak), so
-// expect tens of times its bound. wgmma tiles are later work.
+// Bound, at qwen2.5-3b's prefill shape (B=4, S=T=512, H=16, KV=2,
+// hd=128) in float32: q, k, v read once and out written once are
+// 37,748,736 B (11.3 us at 3.35 TB/s); the causal half of the products is
+// 4.30 GFLOP, 64 us at the CUDA cores' 67 TFLOP/s float32 rate, which
+// bounds this kernel: it computes with float32 FMAs. (In bf16 the same
+// shape is 18,874,368 B, 5.6 us, chip_smoke.py's count; that is the
+// tensor-core kernel's bound.)
 //
 // Design: one block of 256 threads per (query tile of 64 rows, b*H + h).
 // A loop over key tiles of 64 replaces the TPU's sequential grid axis:
-// each tile's K and V are staged in shared memory in the input type, the
+// each tile's K and V are staged in shared memory, the
 // 64x64 logits go to shared memory, four threads per row run the online
 // softmax (running max m, sum l and the rescale factor in shared memory),
 // and each thread keeps a 4 x 8 block of the f32 output accumulator in
@@ -31,12 +35,11 @@
 // key (causal, S > T), where every tile is visited so that the row
 // averages all T values as the reference's does. Ragged query and key
 // tiles (S or T not a multiple of 64) are masked here. Rows of shared
-// memory are padded to an odd number of 4-byte words, so the 16 threads
-// that read 16 rows of K at one column hit 16 banks.
+// memory are padded to an odd number of words (hd + 1), so the 16
+// threads that read 16 rows of K at one column hit 16 banks.
 //
 // Built without --use_fast_math and with --fmad=false; expf, not __expf.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -49,40 +52,21 @@ constexpr int kHdMax = 128;
 constexpr int kPs = kBK + 1;   // row stride of the logits tile (floats)
 constexpr float kMasked = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+size_t smem_bytes(int hd) {
+  return static_cast<size_t>((kBQ + 2 * kBK) * (hd + 1) + kBQ * kPs +
+                             3 * kBQ) * sizeof(float);
 }
 
-// Elements per staged row: an odd number of 4-byte words (hd % 4 == 0).
-template <typename T> __host__ __device__ constexpr int row_stride(int hd) {
-  return sizeof(T) == 4 ? hd + 1 : hd + 2;
-}
-
-template <typename T> size_t smem_bytes(int hd) {
-  return static_cast<size_t>(kBQ + 2 * kBK) * row_stride<T>(hd) * sizeof(T) +
-         static_cast<size_t>(kBQ * kPs + 3 * kBQ) * sizeof(float);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int T_,
-             int H, int KV, int hd, int group, int causal, int window,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int S,
+             int T_, int H, int KV, int hd, int group, int causal, int window,
              float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rs = row_stride<T>(hd);
-  T* Qs = reinterpret_cast<T*>(smem);          // [kBQ][rs]
-  T* Ks = Qs + kBQ * rs;                       // [kBK][rs]
-  T* Vs = Ks + kBK * rs;                       // [kBK][rs]
+  const int rs = hd + 1;                       // an odd number of words
+  float* Qs = reinterpret_cast<float*>(smem);  // [kBQ][rs]
+  float* Ks = Qs + kBQ * rs;                   // [kBK][rs]
+  float* Vs = Ks + kBK * rs;                   // [kBK][rs]
   float* Ps = reinterpret_cast<float*>(Vs + kBK * rs);  // [kBQ][kPs]
   float* m_s = Ps + kBQ * kPs;                 // running max per row
   float* l_s = m_s + kBQ;                      // running sum per row
@@ -98,14 +82,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_step = static_cast<long long>(H) * hd;   // per token
   const long long kv_step = static_cast<long long>(KV) * hd;
-  const T* qb = q + (static_cast<long long>(b) * S * H + h) * hd;
-  const T* kb = k + (static_cast<long long>(b) * T_ * KV + kvh) * hd;
-  const T* vb = v + (static_cast<long long>(b) * T_ * KV + kvh) * hd;
-  T* ob = out + (static_cast<long long>(b) * S * H + h) * hd;
+  const float* qb = q + (static_cast<long long>(b) * S * H + h) * hd;
+  const float* kb = k + (static_cast<long long>(b) * T_ * KV + kvh) * hd;
+  const float* vb = v + (static_cast<long long>(b) * T_ * KV + kvh) * hd;
+  float* ob = out + (static_cast<long long>(b) * S * H + h) * hd;
 
   for (int i = tid; i < kBQ * hd; i += kThreads) {
     const int r = i / hd, d = i % hd;
-    Qs[r * rs + d] = q0 + r < S ? qb[(q0 + r) * q_step + d] : from_f32<T>(0.f);
+    Qs[r * rs + d] = q0 + r < S ? qb[(q0 + r) * q_step + d] : 0.f;
   }
   if (tid < kBQ) {
     m_s[tid] = kMasked;
@@ -134,8 +118,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBK * hd; i += kThreads) {
       const int r = i / hd, d = i % hd;
       const bool in = k0 + r < T_;
-      Ks[r * rs + d] = in ? kb[(k0 + r) * kv_step + d] : from_f32<T>(0.f);
-      Vs[r * rs + d] = in ? vb[(k0 + r) * kv_step + d] : from_f32<T>(0.f);
+      Ks[r * rs + d] = in ? kb[(k0 + r) * kv_step + d] : 0.f;
+      Vs[r * rs + d] = in ? vb[(k0 + r) * kv_step + d] : 0.f;
     }
     __syncthreads();
 
@@ -147,9 +131,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < hd; ++d) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = to_f32(Qs[(ty + 16 * i) * rs + d]);
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * rs + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = to_f32(Ks[(tx + 16 * j) * rs + d]);
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * rs + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -213,7 +197,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 8; ++j) {
         const int d = tx + 16 * j;
         if (j < nd && d < hd) {
-          const float vv = to_f32(Vs[c * rs + d]);
+          const float vv = Vs[c * rs + d];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
         }
@@ -231,48 +215,34 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 8; ++j) {
       const int d = tx + 16 * j;
       if (j < nd && d < hd)
-        ob[(q0 + r) * q_step + d] = from_f32<T>(acc[i][j] / l);
+        ob[(q0 + r) * q_step + d] = acc[i][j] / l;
     }
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_, int H, int KV, int hd, int group, int causal,
-           int window, float scale, cudaStream_t stream) {
-  static size_t configured = 0;                // dynamic shared memory set
-  const size_t bytes = smem_bytes<T>(hd);
-  if (bytes > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = bytes;
-  }
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_, H, KV, hd, group,
-      causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). q: [B,S,H,hd], k/v: [B,T,KV,hd],
-// out: [B,S,H,hd], all contiguous, float32 (bf16 = 0) or bfloat16
-// (bf16 = 1); hd <= 128; window 0 = none. Launches on `stream` and returns
-// cudaGetLastError() as an int (0 = launched).
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int T, int H, int KV, int hd, int group,
-                                      int causal, int window, float scale,
-                                      int bf16, void* stream) {
+// out: [B,S,H,hd], all contiguous float32; hd <= 128; window 0 = none.
+// Launches on `stream` and returns cudaGetLastError() as an int (0 =
+// launched).
+extern "C" int flash_attention_launch(const float* q, const float* k,
+                                      const float* v, float* out, int B,
+                                      int S, int T, int H, int KV, int hd,
+                                      int group, int causal, int window,
+                                      float scale, void* stream) {
   if (hd < 1 || hd > kHdMax) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, T, H, KV, hd, group,
-                                 causal, window, scale, st);
-  return launch<float>(q, k, v, out, B, S, T, H, KV, hd, group, causal,
-                       window, scale, st);
+  static size_t configured = 0;                // dynamic shared memory set
+  const size_t bytes = smem_bytes(hd);
+  if (bytes > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = bytes;
+  }
+  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  flash_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, out, S, T, H, KV, hd, group, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
 }

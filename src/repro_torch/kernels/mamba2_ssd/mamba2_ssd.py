@@ -1,11 +1,13 @@
-"""Hopper SSD recurrence with its final state: build, bind, launch.
+"""Hopper SSD with its final state: build, bind, launch.
 
 ``csrc/ssd.cu`` replaces the Pallas TPU kernel ``ssd_pallas``
 (``repro/kernels/mamba2_ssd/mamba2_ssd.py``) and also writes the final
-state, which that kernel drops. ``kernels._build`` compiles it for
-``sm_90a`` at first use and binds it with ``ctypes``. The wrapper takes
-CUDA tensors only; the CPU path is ``ref.ssd_chunked``, chosen by
-``ops.ssd`` from the tensor's device.
+state, which that kernel drops. Its entry point chooses by dtype:
+bfloat16 x, B, C (the serving path) run the chunked form on the tensor
+cores, float32 the per-token recurrence on the CUDA cores.
+``kernels._build`` compiles it for ``sm_90a`` at first use and binds it
+with ``ctypes``. The wrapper takes CUDA tensors only; the CPU path is
+``ref.ssd_chunked``, chosen by ``ops.ssd`` from the tensor's device.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     Args:
       x: [Bz, S, H, P]; B, C: [Bz, S, N], x's dtype (float32 or
-        bfloat16); dt, a: f32[Bz, S, H] step sizes and decays in (0, 1].
-        All contiguous, on one CUDA device; P <= 128, N in (8, 16, 32, 64).
+        bfloat16; then 16-byte aligned); dt, a: f32[Bz, S, H] step sizes
+        and decays in (0, 1]. All contiguous, on one CUDA device; P <= 128,
+        N in (8, 16, 32, 64).
     Returns:
       (y f32[Bz, S, H, P], final state f32[Bz, H, P, N]).
     """
@@ -63,6 +66,9 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                              f"device, got {z.device}")
         if not z.is_contiguous():
             raise ValueError(f"ssd: {name} must be contiguous")
+        if x.dtype == torch.bfloat16 and name in ("x", "B", "C") and \
+                z.data_ptr() % 16:
+            raise ValueError(f"ssd: {name} must start on a 16-byte boundary")
     y = torch.empty((Bz, S, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
     _build.launch(LIB, "ssd", x.device, x.data_ptr(), dt.data_ptr(),

@@ -276,6 +276,11 @@ def test_lm_kernel_wrappers_reject_bad_inputs():
         t_flash.flash_attention_cuda(big, big, big)
     with pytest.raises(ValueError, match="multiple of KV"):
         t_flash.flash_attention_cuda(q[:, :, :3], k, v)
+    # bfloat16 goes to the tensor-core kernel, whose k-step is 16 wide
+    for hd in (8, 24, 120):
+        odd = T(np.zeros((1, 4, 2, hd), np.float32)).to(torch.bfloat16)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            t_flash.flash_attention_cuda(odd, odd, odd)
 
     r, kk, vv, w, u = (T(a) for a in wkv_inputs(1, 8, 2, 16, seed=1))
     for args, match in [((r, kk, vv, w, u[:1]), "shape"),
@@ -307,7 +312,7 @@ def test_every_kernel_family_shares_the_build_helper():
     libs = (power_topo.LIB, t_flash.LIB, t_wkv.LIB, t_ssd.LIB)
     names = [n for lib in libs for n in lib.names]
     assert names == ["fused_cooling", "group_power", "flash_attention",
-                     "wkv", "ssd"]
+                     "flash_attention_tc", "wkv", "ssd"]
     assert set(kernels.LAUNCHES) == set(names)
     for lib in libs:
         for name in lib.names:
@@ -348,10 +353,16 @@ def test_wkv_kernel_matches_plain_version_on_the_card():
 
 
 def test_ssd_kernel_matches_plain_version_on_the_card():
-    """f32 at 3e-4 (recurrence against the chunked form)."""
+    """3e-4 in both dtypes: f32 x, B, C run the recurrence, bf16 ones the
+    chunked tensor-core kernel (outputs f32 in both)."""
     _needs_card()
-    for Bz, S, H, P, N in ((4, 512, 112, 64, 64), (2, 45, 7, 64, 16)):
-        args = [T(a).cuda() for a in ssd_inputs(Bz, S, H, P, N, seed=S)]
-        for got, want in zip(ssd_ops.ssd(*args), ssd_ref.ssd_chunked(*args)):
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    for dt_ in (torch.float32, torch.bfloat16):
+        for Bz, S, H, P, N in ((4, 512, 112, 64, 64), (2, 45, 7, 64, 16),
+                               (2, 65, 3, 64, 64)):
+            x, dt, a, B, C = (T(z).cuda() for z in
+                              ssd_inputs(Bz, S, H, P, N, seed=S))
+            args = (x.to(dt_), dt, a, B.to(dt_), C.to(dt_))
+            for got, want in zip(ssd_ops.ssd(*args),
+                                 ssd_ref.ssd_chunked(*args)):
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
