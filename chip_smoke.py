@@ -17,7 +17,8 @@ through their entry points at full width and checks what comes out:
 * LM serving (``repro_torch.launch.serve_lm``) of qwen2.5-3b, rwkv6-7b
   and zamba2-7b at full width, one after another: 4 prompts of 512
   tokens and 16 greedy decode steps, whose prefills run the flash
-  attention, WKV and SSD kernels, with a float32 self-check of each;
+  attention, WKV and SSD kernels, with a float32 self-check of each and
+  the bf16 prefill's logits held to the float32 prefill's;
 
 and a small card-against-CPU check of each path. Any failed phase exits
 non-zero; nothing is caught and passed over. The last line is the JSON
@@ -32,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +71,8 @@ from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv  # noqa: E402
 from repro_torch.launch import serve_lm  # noqa: E402
 from repro_torch.launch.simulate import build_system  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models.zoo import get_api  # noqa: E402
 from repro_torch.systems.config import FacilityTopology, get_system  # noqa: E402
 
@@ -179,9 +183,13 @@ def build_phase():
           f"{time.perf_counter() - t:.2f} s (nvcc "
           f"{' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.build_logs.items():
+        fn = ""   # the instantiation, e.g. "..._wkv_chunked_tcILi64E" (hd 64)
         for line in log.splitlines():
+            if "Function properties for" in line:
+                entry = re.search(r"(\w{0,24}I(?:Li\d+E)+)E", line)
+                fn = entry[1] if entry else ""
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}:", line.strip())
+                print(f"  ptxas {name} {fn}:", line.strip())
 
 def kernel_phase(card):
     fr, fu = get_system("frontier"), get_system("fugaku")
@@ -537,20 +545,26 @@ def small_grid_reference():
 # 2^-7 relative: rtol 1e-2, with atol 1e-2 for values near 0); the
 # tensor-core flash kernel also rounds P to bf16 before P.V (2^-9 relative
 # per weight, well inside). WKV's final state and all of SSD's outputs are
-# float32 and keep the float32 bounds: the bf16 SSD kernel's chunked
-# products split every f32 operand into a bf16 pair (about 2^-17).
+# float32 and keep the float32 bounds: the bf16 WKV and SSD kernels'
+# chunked products split every f32 operand into a bf16 pair (about 2^-17).
 LM_TOL = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 1e-2},
           "wkv": {torch.float32: 2e-4, torch.bfloat16: 1e-2},
           "wkv_state": {torch.float32: 2e-4, torch.bfloat16: 2e-4},
           "ssd": {torch.float32: 3e-4, torch.bfloat16: 3e-4}}
 LM_DTYPES = (torch.bfloat16, torch.float32)
 # Device times of the kernels the tensor-core ones replaced on the bf16
-# path (the CUDA-core flash kernel and the per-token SSD recurrence, as
-# of commit 38e3238; PERF.md section 6), printed beside the new ones.
-BEFORE_MS = {("flash_attention", "qwen2.5-3b"): 0.40369022369384766,
-             ("flash_attention", "zamba2-7b"): 0.6393235015869141,
-             ("ssd", "zamba2-7b"): 0.35346622467041017}
-BEFORE_LABEL = "commit 38e3238 on NVIDIA H100 80GB HBM3, 700.00 W"
+# path (the CUDA-core flash kernel, the per-token SSD and WKV
+# recurrences; PERF.md section 6) with where they were measured, printed
+# beside the new ones.
+BEFORE_MS = {
+    ("flash_attention", "qwen2.5-3b"): (
+        0.40369022369384766, "commit 38e3238 on NVIDIA H100 80GB HBM3, 700.00 W"),
+    ("flash_attention", "zamba2-7b"): (
+        0.6393235015869141, "commit 38e3238 on NVIDIA H100 80GB HBM3, 700.00 W"),
+    ("ssd", "zamba2-7b"): (
+        0.35346622467041017, "commit 38e3238 on NVIDIA H100 80GB HBM3, 700.00 W"),
+    ("wkv", "rwkv6-7b"): (
+        0.3395753479003906, "commit 1d75dc0 on NVIDIA H100 80GB HBM3, 700.00 W")}
 
 def gen(seed):
     return torch.Generator(device=DEV).manual_seed(seed)
@@ -574,14 +588,38 @@ def attn_inputs(B, S, Tk, H, KV, hd, dtype, seed):
             torch.randn((B, Tk, KV, hd), generator=g, device=DEV).to(dtype),
             torch.randn((B, Tk, KV, hd), generator=g, device=DEV).to(dtype))
 
-def wkv_inputs(B, S, H, hd, dtype, seed):
-    """The reference test's distributions (tests/test_kernels.py)."""
+def wkv_inputs(B, S, H, hd, dtype, seed, strong=False):
+    """The reference test's distributions (tests/test_kernels.py).
+    ``strong``: w log-uniform down to 1e-30, every 8th channel (from 3)
+    at exactly 1 and every 8th (from 5) at exactly 0."""
     g = gen(seed)
     n = lambda *shape: torch.randn(shape, generator=g, device=DEV)
-    return ((n(B, S, H, hd) * 0.5).to(dtype), (n(B, S, H, hd) * 0.5).to(dtype),
-            n(B, S, H, hd).to(dtype),
-            torch.sigmoid(n(B, S, H, hd) - 1.0) * 0.97 + 0.02,
-            n(H, hd) * 0.3)
+    r, k, v = (n(B, S, H, hd) * 0.5).to(dtype), \
+        (n(B, S, H, hd) * 0.5).to(dtype), n(B, S, H, hd).to(dtype)
+    w = torch.sigmoid(n(B, S, H, hd) - 1.0) * 0.97 + 0.02
+    u = n(H, hd) * 0.3
+    if strong:
+        w = 10.0 ** (-30.0 * torch.rand((B, S, H, hd), generator=g,
+                                         device=DEV))
+        w[..., 3::8] = 1.0
+        w[..., 5::8] = 0.0
+    return r, k, v, w, u
+
+def rwkv_layer_inputs(B, S, dtype, seed):
+    """r, k, v, w, u of layer 0 of rwkv6-7b at full width (D=4096, H=64,
+    hd=64) under seeded random weights, for random tokens: the model's own
+    time mix and ``_decay`` (``rwkv6.wkv_inputs``), so w is the model's
+    data-dependent exp(-exp(w0 + lora))."""
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=1)
+    params = get_api(cfg).init(gen(seed), DEV)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen(seed + 1),
+                           device=DEV)
+    lp = model_common.layer(params["blocks"], 0)
+    x = model_common.rmsnorm(model_common.embed_tokens(
+        params["embed"], tokens, cfg), lp["ln1"])
+    r, k, v, w, u, _ = rwkv6.wkv_inputs(lp, x, cfg)
+    return (*(z.to(dtype).contiguous() for z in (r, k, v)), w.contiguous(),
+            u.contiguous())
 
 def ssd_inputs(Bz, S, H, P, N, dtype, seed):
     """The reference test's distributions (tests/test_kernels.py)."""
@@ -598,11 +636,11 @@ def bound(n_bytes, n_ops):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 def timing(card, name, shape, kernel, plain, library, n_bytes, n_ops,
-           before_ms=None):
+           before=None):
     """Graph and eager times of the kernel, its plain version and (where
     there is one) the library call, with the ratio to the library call
-    and the replaced kernel's time where given; returns the kernels-line
-    numbers."""
+    and the replaced kernel's (time, where measured) where given; returns
+    the kernels-line numbers."""
     ms = graph_ms(kernel, iters=20, reps=5)
     plain_ms = graph_ms(plain, iters=5, reps=3)
     lib_ms = graph_ms(library, iters=20, reps=5) if library else None
@@ -618,10 +656,10 @@ def timing(card, name, shape, kernel, plain, library, n_bytes, n_ops,
     if lib_ms:
         print(f"[{card}] {name} {shape}: kernel / library = "
               f"{ms / lib_ms!r}")
-    if before_ms:
+    if before:
+        before_ms, where = before
         print(f"[{card}] {name} {shape}: before {before_ms!r} ms "
-              f"({BEFORE_LABEL}) -> now {ms!r} ms, {before_ms / ms!r}x "
-              f"faster")
+              f"({where}) -> now {ms!r} ms, {before_ms / ms!r}x faster")
     print(f"[{card}] {name} per eager call, host included: "
           + ", ".join(f"{k} {v!r} ms" for k, v in eager.items()))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -678,23 +716,52 @@ def flash_phase(card):
 
 def wkv_phase(card):
     """WKV against its plain chunked version at rwkv6-7b's prefill shape
-    (H=64, hd=64, S=512), serve_lm's 32-token prompt and a ragged S=45."""
+    (H=64, hd=64, S=512), serve_lm's 32-token prompt, a ragged S=45,
+    strong decay (w down to 1e-30, channels at exactly 1 and 0) at
+    S=512, the operands of one real rwkv6-7b layer (seeded random
+    weights, the model's own decay), S=65 (one token past a chunk pair),
+    S=7 (under a 16-token sub-block), and the other head widths (hd = 8,
+    zero-padded to 16 in shared memory, 16 and 32). bfloat16 runs the
+    chunked tensor-core kernel, float32 the recurrence. The plain version
+    runs in float64 on the same inputs: in float32 its log-space cumsum
+    loses precision under strong decay (the float32 plain version's own
+    distance from the float64 run is printed beside each case)."""
+    cases = [("B=4 S=512", lambda dt: wkv_inputs(4, 512, 64, 64, dt, 40)),
+             ("B=4 S=32", lambda dt: wkv_inputs(4, 32, 64, 64, dt, 41)),
+             ("B=2 S=45", lambda dt: wkv_inputs(2, 45, 64, 64, dt, 42)),
+             ("strong decay B=4 S=512",
+              lambda dt: wkv_inputs(4, 512, 64, 64, dt, 43, strong=True)),
+             ("rwkv6-7b layer 0 B=4 S=512",
+              lambda dt: rwkv_layer_inputs(4, 512, dt, 44)),
+             ("B=2 S=65", lambda dt: wkv_inputs(2, 65, 64, 64, dt, 46)),
+             ("B=2 S=7", lambda dt: wkv_inputs(2, 7, 64, 64, dt, 47)),
+             ("B=2 S=45", lambda dt: wkv_inputs(2, 45, 3, 8, dt, 48)),
+             ("B=2 S=100", lambda dt: wkv_inputs(2, 100, 4, 16, dt, 49)),
+             ("B=2 S=65", lambda dt: wkv_inputs(2, 65, 2, 32, dt, 50))]
     err = 0.0
     for dtype in LM_DTYPES:
-        for i, (B, S) in enumerate(((4, 512), (4, 32), (2, 45))):
-            r, k, v, w, u = wkv_inputs(B, S, 64, 64, dtype, 40 + i)
+        for label, make in cases:
+            r, k, v, w, u = make(dtype)
+            label = f"{label} H={r.shape[2]} hd={r.shape[3]} {dtype}"
             y, st = wkv_ops.wkv(r, k, v, w, u)
-            y0, st0 = wkv_ref.wkv_chunked(r, k, v, w, u)
-            e = close(f"wkv y B={B} S={S} {dtype}", y, y0,
+            y0, st0 = wkv_ref.wkv_chunked(
+                *(z.double() for z in (r, k, v, w, u)))
+            e = close(f"wkv y {label}", y, y0.to(y.dtype),
                       LM_TOL["wkv"][dtype])
-            es = close(f"wkv state B={B} S={S} {dtype}", st, st0,
+            es = close(f"wkv state {label}", st, st0.float(),
                        LM_TOL["wkv_state"][dtype])
             if dtype == torch.bfloat16:
                 err = max(err, e, es)
-            print(f"kernel wkv B={B} S={S} H=64 hd=64 {dtype}: y "
+            yp, sp = wkv_ref.wkv_chunked(r, k, v, w, u)
+            print(f"kernel wkv {label}: y "
                   f"max_abs_err={e!r} (rtol=atol={LM_TOL['wkv'][dtype]}), "
                   f"state max_abs_err={es!r} (rtol=atol="
-                  f"{LM_TOL['wkv_state'][dtype]})")
+                  f"{LM_TOL['wkv_state'][dtype]}) against the float64 "
+                  f"plain run; float32 plain version: y "
+                  f"{float((yp.double() - y0.to(y.dtype).double()).abs().max())!r}"
+                  f", state {float((sp.double() - st0).abs().max())!r}; w in "
+                  f"[{float(w.min())!r}, {float(w.max())!r}], |state| up to "
+                  f"{float(st0.abs().max())!r}")
     B, S, H, hd = 4, 512, 64, 64
     r, k, v, w, u = wkv_inputs(B, S, H, hd, torch.bfloat16, 45)
     n = B * S * H * hd
@@ -702,9 +769,9 @@ def wkv_phase(card):
                lambda: wkv_ops.wkv(r, k, v, w, u),
                lambda: wkv_ref.wkv_chunked(r, k, v, w, u), None,
                3 * 2 * n + 4 * n + 4 * H * hd + 2 * n + 4 * B * H * hd * hd,
-               5 * n * hd)
+               5 * n * hd, BEFORE_MS[("wkv", "rwkv6-7b")])
     return dict(name="wkv", route="cuda",
-                source="src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu",
+                source="src/repro_torch/kernels/rwkv6_wkv/csrc/wkv_tc.cu",
                 replaces="src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:68",
                 launches=None, max_abs_err=err, **t)
 
@@ -749,24 +816,34 @@ LM_ARCHS = ["qwen2.5-3b", "rwkv6-7b", "zamba2-7b"]
 # kernel launches of one prefill (the decode runs no kernel): a flash
 # attention per layer; a WKV per layer; an SSD per Mamba2 layer and a
 # flash attention per shared-block call (81 layers, every 6th: 13 calls)
-# (bf16: the tensor-core flash kernel; the float32 one launches nothing)
+# (bf16: the tensor-core flash and WKV kernels; the float32 ones launch
+# nothing)
 LM_LAUNCHES = {"qwen2.5-3b": {"flash_attention_tc": 36},
-               "rwkv6-7b": {"wkv": 32},
+               "rwkv6-7b": {"wkv_tc": 32},
                "zamba2-7b": {"ssd": 81, "flash_attention_tc": 13}}
 # the launch count of each kernels-line entry of the LM path
-LM_COUNTER = {"flash_attention": "flash_attention_tc", "wkv": "wkv",
+LM_COUNTER = {"flash_attention": "flash_attention_tc", "wkv": "wkv_tc",
               "ssd": "ssd"}
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 16
 SELF_TOL = 4e-3      # the JAX package's recurrent-vs-parallel bound
+# The bf16 prefill's last-position logits against the float32 prefill's
+# of the same weights and prompts, as max |bf16 - f32| / max |f32|
+# (PERF.md section 2 gives the reasoning): bf16 rounds the operands of
+# every product to 2^-9, and under untrained weights the drift compounds
+# with depth, far more in rwkv6 (the JAX package's bf16 path drifts as
+# much); tests/test_torch_lm_bf16.py holds the smoke widths at full
+# depth to the same bounds on the CPU.
+BF16_LOGIT_TOL = {"qwen2.5-3b": 0.05, "rwkv6-7b": 0.5, "zamba2-7b": 0.05}
 
 def self_check(arch, api, params, prompts):
     """Whole path in float32 at full width (dtype replaced, widths and
     depths unchanged): prefill(S) and one decode step against the last
-    logits of prefill(S + 1), at the JAX package's own 4e-3."""
+    logits of prefill(S + 1), at the JAX package's own 4e-3. Returns the
+    float32 prefill(S) logits."""
     cfg32 = dataclasses.replace(api.cfg, dtype=torch.float32)
     api32 = get_api(cfg32)
     nxt = prompts[:, :1].flip(0)
-    _, state = api32.prefill(params, {"tokens": prompts}, LM_PROMPT + 1)
+    logits, state = api32.prefill(params, {"tokens": prompts}, LM_PROMPT + 1)
     dec, _ = api32.decode(params, nxt[:, 0], state)
     full, _ = api32.prefill(params, {"tokens": torch.cat([prompts, nxt], 1)},
                             LM_PROMPT + 1)
@@ -779,6 +856,25 @@ def self_check(arch, api, params, prompts):
     print(f"{arch}: float32 full-width self-check, prefill({LM_PROMPT}) + "
           f"decode vs prefill({LM_PROMPT + 1}): max_abs_err={err!r} "
           f"(rtol=atol={SELF_TOL}; logits up to {float(full.abs().max())!r})")
+    return logits
+
+def bf16_check(arch, got, want):
+    """The bf16 serving path's prefill logits against the float32 ones
+    of the same weights and prompts, relative to the largest logit."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise SystemExit(f"{arch}: bf16 prefill logits {tuple(got.shape)} "
+                         f"bad or not finite")
+    top = float(want.abs().max())
+    rel = float((got.float() - want).abs().max()) / top
+    print(f"{arch}: bf16 prefill vs float32 prefill, {LM_BATCH} x "
+          f"{LM_PROMPT} tokens: max |bf16 - f32| / max |f32| = {rel!r} "
+          f"(bound {BF16_LOGIT_TOL[arch]}; largest logit {top!r}; argmax "
+          f"agrees on {int((got.argmax(-1) == want.argmax(-1)).sum())} of "
+          f"{LM_BATCH})")
+    if not rel <= BF16_LOGIT_TOL[arch]:
+        raise SystemExit(f"{arch}: bf16 prefill logits {rel!r} of the "
+                         f"largest away from float32, over "
+                         f"{BF16_LOGIT_TOL[arch]}")
 
 def serve_path(card, entries):
     """Each arch in turn: the counted serving run through
@@ -814,7 +910,8 @@ def serve_path(card, entries):
         for _ in range(3):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            api.prefill(params, {"tokens": prompts}, LM_PROMPT + LM_GEN)
+            bf16_logits = api.prefill(params, {"tokens": prompts},
+                                      LM_PROMPT + LM_GEN)[0]
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         prefill_ms = 1e3 * sum(times) / len(times)
@@ -828,8 +925,8 @@ def serve_path(card, entries):
               f"{dec_s!r} s = {LM_BATCH * LM_GEN / dec_s!r} tok/s; peak "
               f"memory {peak!r} GiB; serve wall {wall!r} s; sample "
               f"{toks[0][:8].tolist()}")
-        self_check(arch, api, params, prompts)
-        del params, logits
+        bf16_check(arch, bf16_logits, self_check(arch, api, params, prompts))
+        del params, logits, bf16_logits
         torch.cuda.empty_cache()
     for e in entries:
         e["launches"] = total[LM_COUNTER[e["name"]]]

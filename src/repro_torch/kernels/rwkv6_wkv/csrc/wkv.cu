@@ -1,22 +1,23 @@
-// RWKV6 WKV recurrence with its final state, for Hopper (sm_90a).
+// RWKV6 WKV recurrence with its final state in float32 on the CUDA cores,
+// for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `wkv_pallas` (`_kernel`) in
-// src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py, and returns what that kernel
-// keeps in scratch and drops: the final state, which the prefill hands to
-// the decode. Plain version: repro_torch/kernels/rwkv6_wkv/ref.py
-// `wkv_chunked` (the JAX package's chunked form).
+// src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py for float32 inputs (the
+// full-width float32 self-checks and the smoke archs), and returns what
+// that kernel keeps in scratch and drops: the final state, which the
+// prefill hands to the decode. bfloat16 goes to the chunked tensor-core
+// kernel in wkv_tc.cu, chosen by dtype in rwkv6_wkv.py. Plain version:
+// repro_torch/kernels/rwkv6_wkv/ref.py `wkv_chunked` (the JAX package's
+// chunked form).
 //
 // Per (b, h), state S in R^{hd x hd} from zero:
 //   y_t[j]  = sum_i r_t[i] (S[i,j] + u[i] k_t[i] v_t[j])
 //   S[i,j] <- w_t[i] S[i,j] + k_t[i] v_t[j]         (w clamped to [1e-38, 1])
 //
-// Bound, at rwkv6-7b's prefill (B=4, S=512, H=64, hd=64; r, k, v and y
-// bf16, w f32): reading r, k, v, w once and writing y and the f32 state
-// once is ~105 MB, 31 us at 3.35 TB/s: bound by bytes. Its ~5*B*S*H*hd*hd
-// = 2.7 GFLOP would take 3 us at the tensor cores' 989 TFLOP/s (the
-// chunked form is matrix products), but this kernel runs the elementwise
-// recurrence on the CUDA cores, where they need 40 us at the 67 TFLOP/s
-// float32 peak: expect at least that.
+// Bound, at rwkv6-7b's prefill shape (B=4, S=512, H=64, hd=64) in
+// float32: reading r, k, v, w once and writing y and the state once is
+// ~172 MB, 51 us at 3.35 TB/s. Its ~5*B*S*H*hd*hd = 2.7 GFLOP take 40 us
+// at the CUDA cores' 67 TFLOP/s float32 rate, which this kernel uses.
 //
 // Design: the per-token recurrence of the reference's `wkv_ref`, which is
 // the same function as the chunked form and needs no exp or log at all,
@@ -31,31 +32,17 @@
 //
 // Built without --use_fast_math and with --fmad=false.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kChunk = 32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(HD)
-wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
-           const T* __restrict__ v, const float* __restrict__ w,
-           const float* __restrict__ u, T* __restrict__ y,
+wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ w,
+           const float* __restrict__ u, float* __restrict__ y,
            float* __restrict__ state, int S, int H) {
   __shared__ __align__(16) float rs[kChunk][HD];
   __shared__ __align__(16) float ks[kChunk][HD];
@@ -79,9 +66,9 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
     __syncthreads();                           // last chunk fully read
     for (int tt = 0; tt < n; ++tt) {
       const long long o = base + (t0 + tt) * step;
-      rs[tt][j] = to_f32(r[o]);
-      ks[tt][j] = to_f32(k[o]);
-      vs[tt][j] = to_f32(v[o]);
+      rs[tt][j] = r[o];
+      ks[tt][j] = k[o];
+      vs[tt][j] = v[o];
       ws[tt][j] = fminf(fmaxf(w[o], 1e-38f), 1.f);
     }
     __syncthreads();
@@ -110,7 +97,7 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
       }
       const float yt = ((a[0] + a[1]) + (a[2] + a[3])) +
                        ((c[0] + c[1]) + (c[2] + c[3])) * vj;
-      y[base + (t0 + tt) * step] = from_f32<T>(yt);
+      y[base + (t0 + tt) * step] = yt;
     }
   }
   float* st = state + static_cast<long long>(b * H + h) * HD * HD + j;
@@ -118,38 +105,24 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
   for (int i = 0; i < HD; ++i) st[i * HD] = s[i];
 }
 
-template <typename T>
-int launch(const void* r, const void* k, const void* v, const float* w,
-           const float* u, void* y, float* state, int B, int S, int H,
-           int hd, cudaStream_t st) {
-  const T* r_ = static_cast<const T*>(r);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  T* y_ = static_cast<T*>(y);
+}  // namespace
+
+// Plain C entry point (bound with ctypes). r, k, v, y: f32[B,S,H,hd];
+// w: f32[B,S,H,hd]; u: f32[H,hd]; state: f32[B,H,hd,hd] (written); all
+// contiguous; hd in {8, 16, 32, 64}. Launches on `stream` and returns
+// cudaGetLastError() as an int (0 = launched).
+extern "C" int wkv_launch(const float* r, const float* k, const float* v,
+                          const float* w, const float* u, float* y,
+                          float* state, int B, int S, int H, int hd,
+                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * H);
   switch (hd) {
-    case 8: wkv_kernel<T, 8><<<grid, 8, 0, st>>>(r_, k_, v_, w, u, y_, state, S, H); break;
-    case 16: wkv_kernel<T, 16><<<grid, 16, 0, st>>>(r_, k_, v_, w, u, y_, state, S, H); break;
-    case 32: wkv_kernel<T, 32><<<grid, 32, 0, st>>>(r_, k_, v_, w, u, y_, state, S, H); break;
-    case 64: wkv_kernel<T, 64><<<grid, 64, 0, st>>>(r_, k_, v_, w, u, y_, state, S, H); break;
+    case 8: wkv_kernel<8><<<grid, 8, 0, st>>>(r, k, v, w, u, y, state, S, H); break;
+    case 16: wkv_kernel<16><<<grid, 16, 0, st>>>(r, k, v, w, u, y, state, S, H); break;
+    case 32: wkv_kernel<32><<<grid, 32, 0, st>>>(r, k, v, w, u, y, state, S, H); break;
+    case 64: wkv_kernel<64><<<grid, 64, 0, st>>>(r, k, v, w, u, y, state, S, H); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Plain C entry point (bound with ctypes). r, k, v, y: [B,S,H,hd] of one
-// type, float32 (bf16 = 0) or bfloat16 (bf16 = 1); w: f32[B,S,H,hd];
-// u: f32[H,hd]; state: f32[B,H,hd,hd] (written); all contiguous;
-// hd in {8, 16, 32, 64}. Launches on `stream` and returns
-// cudaGetLastError() as an int (0 = launched).
-extern "C" int wkv_launch(const void* r, const void* k, const void* v,
-                          const float* w, const float* u, void* y,
-                          float* state, int B, int S, int H, int hd, int bf16,
-                          void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(r, k, v, w, u, y, state, B, S, H, hd, st);
-  return launch<float>(r, k, v, w, u, y, state, B, S, H, hd, st);
 }

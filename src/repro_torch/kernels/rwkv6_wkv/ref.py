@@ -31,14 +31,21 @@ def wkv_ref(r, k, v, w, u):
 
 def wkv_chunked(r, k, v, w, u, chunk: int = 32):
     """Chunked WKV (state0 = 0): returns (y in r's dtype, final state f32
-    [B,H,hd,hd]). Everything stays in log space until the last exp, and
-    the pairwise decays are masked BEFORE the exp, so strong decay cannot
-    make inf * 0. A sequence that is not a multiple of the chunk is padded
-    with tokens that leave the state as it is (k = 0, w = 1)."""
+    [B,H,hd,hd]; float64 inputs compute and return float64). Everything
+    stays in log space until the last exp, and the pairwise decays are
+    masked BEFORE the exp, so strong decay cannot make inf * 0. A
+    sequence that is not a multiple of the chunk is padded with tokens
+    that leave the state as it is (k = 0, w = 1).
+
+    In float32, strong decay costs precision: a chunk's log-space cumsum
+    reaches |cum| ~ 2,000 and the exponent cum_prev[t] - cum[s] of two
+    near tokens is a difference of two such numbers, so the card holds
+    its kernels to this function run in float64 (``chip_smoke.py``)."""
     B, S, H, hd = r.shape
     dt_out = r.dtype
-    r, k, v, w = (x.float() for x in (r, k, v, w))
-    u = u.float()
+    wide = lambda x: x.to(torch.promote_types(x.dtype, torch.float32))
+    r, k, v, w = map(wide, (r, k, v, w))
+    u = wide(u)
     L = min(chunk, S)
     pad = -S % L
     if pad:
@@ -57,7 +64,7 @@ def wkv_chunked(r, k, v, w, u, chunk: int = 32):
     cum_last = cum[..., -1:, :]
     mask = (torch.arange(L, device=r.device)[:, None] >
             torch.arange(L, device=r.device)[None, :])
-    s = torch.zeros((B, H, hd, hd), device=r.device)
+    s = torch.zeros((B, H, hd, hd), dtype=r.dtype, device=r.device)
     ys = []
     for c in range(nC):
         rt, kt, vt = rc[c], kc[c], vc[c]

@@ -1,11 +1,14 @@
-"""Hopper WKV recurrence with its final state: build, bind, launch.
+"""Hopper WKV with its final state: build, bind, launch.
 
-``csrc/wkv.cu`` replaces the Pallas TPU kernel ``wkv_pallas``
-(``repro/kernels/rwkv6_wkv/rwkv6_wkv.py``) and also writes the final
-state, which that kernel drops. ``kernels._build`` compiles it for
-``sm_90a`` at first use and binds it with ``ctypes``. The wrapper takes
-CUDA tensors only; the CPU path is ``ref.wkv_chunked``, chosen by
-``ops.wkv`` from the tensor's device.
+Two kernels replace the Pallas TPU kernel ``wkv_pallas``
+(``repro/kernels/rwkv6_wkv/rwkv6_wkv.py``), one per dtype, and also
+write the final state, which that kernel drops: ``csrc/wkv_tc.cu`` takes
+bfloat16 r, k, v (the serving path), chunked on the tensor cores;
+``csrc/wkv.cu`` takes float32, the per-token recurrence on the CUDA
+cores. ``kernels._build`` compiles each for ``sm_90a`` at first use and
+binds it with ``ctypes``. The wrapper takes CUDA tensors only; the CPU
+path is ``ref.wkv_chunked``, chosen by ``ops.wkv`` from the tensor's
+device.
 """
 from __future__ import annotations
 
@@ -17,12 +20,14 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import I as _I, P as _P
 
+_ARGS = [_P, _P, _P, _P, _P, _P, _P,        # r, k, v, w, u, y, state
+         _I, _I, _I, _I,                    # B, S, H, hd
+         _P]                                # stream
 LIB = _build.Library(pathlib.Path(__file__).parent, {
-    "wkv": [_P, _P, _P, _P, _P, _P, _P,     # r, k, v, w, u, y, state
-            _I, _I, _I, _I, _I,             # B, S, H, hd, bf16
-            _P],                            # stream
+    "wkv": _ARGS,                           # float32, CUDA cores
+    "wkv_tc": _ARGS,                        # bfloat16, tensor cores
 })
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL = {torch.float32: "wkv", torch.bfloat16: "wkv_tc"}
 HDS = (8, 16, 32, 64)
 
 
@@ -31,9 +36,10 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the WKV kernel on the current stream.
 
     Args:
-      r, k, v: [B, S, H, hd], one dtype (float32 or bfloat16); w:
-        f32[B, S, H, hd] decays in (0, 1]; u: f32[H, hd] bonus. All
-        contiguous, on one CUDA device; hd in (8, 16, 32, 64).
+      r, k, v: [B, S, H, hd], one dtype: bfloat16 (the tensor-core
+        kernel; r, k, v and w then 16-byte aligned) or float32 (the
+        recurrence); w: f32[B, S, H, hd] decays in (0, 1]; u: f32[H, hd]
+        bonus. All contiguous, on one CUDA device; hd in (8, 16, 32, 64).
     Returns:
       (y [B, S, H, hd] in r's dtype, final state f32[B, H, hd, hd]).
     """
@@ -49,7 +55,7 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"wkv: {name} has shape {tuple(x.shape)}, want "
                              f"{tuple(shape)}")
-    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+    if r.dtype not in KERNEL or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"wkv: r, k, v must all be float32 or bfloat16, got "
                          f"{r.dtype}, {k.dtype}, {v.dtype}")
     for name, x in (("w", w), ("u", u)):
@@ -61,10 +67,13 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"device, got {x.device}")
         if not x.is_contiguous():
             raise ValueError(f"wkv: {name} must be contiguous")
+        if r.dtype == torch.bfloat16 and name != "u" and x.data_ptr() % 16:
+            raise ValueError(f"wkv: {name} must start on a 16-byte boundary")
+    kernel = KERNEL[r.dtype]
     y = torch.empty_like(r)
     state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    _build.launch(LIB, "wkv", r.device, r.data_ptr(), k.data_ptr(),
+    _build.launch(LIB, kernel, r.device, r.data_ptr(), k.data_ptr(),
                   v.data_ptr(), w.data_ptr(), u.data_ptr(), y.data_ptr(),
-                  state.data_ptr(), B, S, H, hd, DTYPES[r.dtype])
-    kernels.LAUNCHES["wkv"] += 1
+                  state.data_ptr(), B, S, H, hd)
+    kernels.LAUNCHES[kernel] += 1
     return y, state

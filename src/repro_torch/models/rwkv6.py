@@ -53,10 +53,11 @@ def _decay(lp, xw, cfg):
     return torch.exp(-torch.exp(lp["w0"].float() + lora.float()))  # in (0, 1)
 
 
-def _time_mix(lp, x, cfg: ArchConfig):
-    """Time mix of the normed input x [B,S,D]; returns (out, final WKV
-    state f32[B,H,hd,hd])."""
-    B, S, D = x.shape
+def wkv_inputs(lp, x, cfg: ArchConfig):
+    """The WKV operands of the normed input x [B,S,D]: (r, k, v
+    [B,S,H,hd] in cfg.dtype, w f32[B,S,H,hd], u f32[H,hd], the output
+    gate g [B,S,D])."""
+    B, S = x.shape[:2]
     H, hd, dt = cfg.n_heads, cfg.hd, cfg.dtype
     sx = _shift(x)
     mu = lp["mu"].to(dt)
@@ -68,9 +69,17 @@ def _time_mix(lp, x, cfg: ArchConfig):
     w = _decay(lp, xw, cfg)
     heads = lambda z: z.reshape(B, S, H, hd)
     u = lp["u"].float().reshape(H, hd)
-    y, s_fin = wkv_ops.wkv(heads(r), heads(k), heads(v), heads(w), u)
+    return heads(r), heads(k), heads(v), heads(w), u, g
+
+
+def _time_mix(lp, x, cfg: ArchConfig):
+    """Time mix of the normed input x [B,S,D]; returns (out, final WKV
+    state f32[B,H,hd,hd])."""
+    B, S, D = x.shape
+    r, k, v, w, u, g = wkv_inputs(lp, x, cfg)
+    y, s_fin = wkv_ops.wkv(r, k, v, w, u)
     y = C.rmsnorm(y.reshape(B, S, D), lp["ln_x"])
-    return (y * g).to(dt) @ lp["wo"].to(dt), s_fin
+    return (y * g).to(cfg.dtype) @ lp["wo"].to(cfg.dtype), s_fin
 
 
 def _channel_mix(lp, x, cfg: ArchConfig):

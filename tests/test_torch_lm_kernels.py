@@ -178,6 +178,42 @@ def test_wkv_strong_decay_is_stable():
     np.testing.assert_allclose(as_np(s), np.asarray(rs), atol=1e-4)
 
 
+def test_wkv_plain_runs_in_float64_for_the_card_checks():
+    """float64 inputs compute and return float64: the reference the card
+    holds the WKV kernels to. It matches a float64 per-token scan to
+    1e-9 under strong decay (w log-uniform down to 1e-30, channels at
+    exactly 1 and 0), where the float32 chunked form, as the JAX
+    package's, misses y by more than the 2e-4 tolerance (its log-space
+    cumsum reaches |cum| ~ 2,000 in a chunk); on the reference
+    distribution it equals the float32 form at ``CHUNKED_TOL``."""
+    args = [T(a) for a in wkv_inputs(1, 128, 2, 64, seed=3)]
+    y32, s32 = wkv_ref.wkv_chunked(*args)
+    y64, s64 = wkv_ref.wkv_chunked(*(a.double() for a in args))
+    assert y64.dtype == s64.dtype == torch.float64
+    close(y64, as_np(y32), CHUNKED_TOL, "y, float64 vs float32")
+    close(s64, as_np(s32), CHUNKED_TOL, "state, float64 vs float32")
+
+    rng = np.random.default_rng(3)
+    w = 10.0 ** (-30.0 * rng.uniform(0.0, 1.0, (1, 128, 2, 64)))
+    w[..., 3::8], w[..., 5::8] = 1.0, 0.0
+    args[3] = T(w.astype(np.float32))
+    r, k, v, w, u = (a.double() for a in args)
+    s = torch.zeros((1, 2, 64, 64), dtype=torch.float64)
+    ys = []
+    for t in range(128):                       # per-token scan, float64
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t],
+                               s + u[None, :, :, None] * kv))
+        s = torch.clamp(w[:, t], 1e-38, 1.0)[..., None] * s + kv
+    y_scan = torch.stack(ys, 1)
+    y64, s64 = wkv_ref.wkv_chunked(r, k, v, w, u)
+    torch.testing.assert_close(y64, y_scan, rtol=1e-9, atol=1e-9)
+    torch.testing.assert_close(s64, s, rtol=1e-9, atol=1e-9)
+    y32, _ = wkv_ref.wkv_chunked(*args)
+    miss = (y32.double() - y_scan).abs() - 2e-4 * (1 + y_scan.abs())
+    assert float(miss.max()) > 0
+
+
 def test_wkv_plain_ragged_sequence_matches_jax_ref():
     """S = 45 is no multiple of the chunk: the padded tail leaves y and
     the final state as the naive scan has them."""
@@ -312,7 +348,7 @@ def test_every_kernel_family_shares_the_build_helper():
     libs = (power_topo.LIB, t_flash.LIB, t_wkv.LIB, t_ssd.LIB)
     names = [n for lib in libs for n in lib.names]
     assert names == ["fused_cooling", "group_power", "flash_attention",
-                     "flash_attention_tc", "wkv", "ssd"]
+                     "flash_attention_tc", "wkv", "wkv_tc", "ssd"]
     assert set(kernels.LAUNCHES) == set(names)
     for lib in libs:
         for name in lib.names:
@@ -343,13 +379,32 @@ def test_flash_kernel_matches_plain_version_on_the_card():
 
 
 def test_wkv_kernel_matches_plain_version_on_the_card():
-    """f32 at 2e-4 (recurrence against the chunked form)."""
+    """Against the plain chunked form run in float64 (in float32 its
+    log-space cumsum loses precision under strong decay): f32 (the
+    recurrence) at 2e-4; bf16 (the chunked tensor-core kernel) y at 1e-2
+    (one bf16 ulp) and the f32 state at 2e-4. The last case is strong
+    decay: w log-uniform down to 1e-30, some channels at exactly 1 and
+    some at exactly 0."""
     _needs_card()
-    for B, S, H, hd in ((4, 512, 64, 64), (2, 45, 3, 16)):
-        args = [T(a).cuda() for a in wkv_inputs(B, S, H, hd, seed=S)]
-        for got, want in zip(wkv_ops.wkv(*args), wkv_ref.wkv_chunked(*args)):
+    rng = np.random.default_rng(17)
+    strong = 10.0 ** (-30.0 * rng.uniform(0.0, 1.0, (2, 512, 2, 64)))
+    strong[..., 3::8], strong[..., 5::8] = 1.0, 0.0
+    cases = [(wkv_inputs(B, S, H, hd, seed=S), "")
+             for B, S, H, hd in ((4, 512, 64, 64), (2, 45, 3, 16),
+                                 (2, 7, 3, 8), (2, 65, 2, 32))]
+    r, k, v, _, u = wkv_inputs(2, 512, 2, 64, seed=17)
+    cases.append(((r, k, v, strong.astype(np.float32), u), "strong decay"))
+    for dt, y_tol in ((torch.float32, 2e-4), (torch.bfloat16, 1e-2)):
+        for arrays, label in cases:
+            r, k, v, w, u = (T(a).cuda() for a in arrays)
+            args = (r.to(dt), k.to(dt), v.to(dt), w, u)
+            (y, st), (y0, st0) = wkv_ops.wkv(*args), \
+                wkv_ref.wkv_chunked(*(z.double() for z in args))
             torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+            assert y.dtype == dt and st.dtype == torch.float32, label
+            torch.testing.assert_close(y.float(), y0.to(dt).float(),
+                                       rtol=y_tol, atol=y_tol)
+            torch.testing.assert_close(st, st0.float(), rtol=2e-4, atol=2e-4)
 
 
 def test_ssd_kernel_matches_plain_version_on_the_card():
