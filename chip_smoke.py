@@ -14,13 +14,22 @@ through their entry points at full width and checks what comes out:
   under synthetic carbon, price and power-cap signals (the evening cap
   dip in the last 3 h), 12 (cap level x policy x weight) scenarios, which
   runs the group-power kernel once a step;
+* ``fugaku-sweep-2h``, the no-grid sweep at Fugaku's full width (158,976
+  nodes, 32 CDU groups, 4,000 jobs, 120 steps of 60 s, 8 scenarios),
+  whose fused cooling launches give each group's span of 4,968 nodes
+  to one CTA of 512 threads;
 * LM serving (``repro_torch.launch.serve_lm``) of qwen2.5-3b, rwkv6-7b
   and zamba2-7b at full width, one after another: 4 prompts of 512
   tokens and 16 greedy decode steps, whose prefills run the flash
   attention, WKV and SSD kernels, with a float32 self-check of each and
   the bf16 prefill's logits held to the float32 prefill's;
 
-and a small card-against-CPU check of each path. Any failed phase exits
+and a small card-against-CPU check of each path. Before the paths, each
+kernel is held to its plain version at the paths' shapes and ragged ones
+and timed (CUDA graph, eager, host enqueue, the launch floor; for the
+power-topology kernels also at Fugaku's width), and the power-topology
+kernels' sums are shown to be bit for bit independent of the batch and
+of the load width. Any failed phase exits
 non-zero; nothing is caught and passed over. The last line is the JSON
 device record; the line before it lists the kernels with their
 launches, errors and times.
@@ -87,6 +96,7 @@ SWEEP = [("fcfs", "easy"), ("fcfs", "none"), ("sjf", "first-fit"),
          ("acct_fugaku_pts", "easy"), ("thermal_aware", "easy"),
          ("replay", "none")]
 FRONTIER_T1 = 6 * 3600.0     # the CLI's default window
+FUGAKU_T1 = 2 * 3600.0       # 120 steps at Fugaku's dt = 60 s
 # frontier-grid-6h: benchmarks/fig_carbon.py's cap levels and carbon
 # weights under first-fit, plus price_aware and two EASY rows
 CAP_SCALES = [1.0, 0.85, 0.7]
@@ -174,6 +184,83 @@ def check_kernel(label, sysc, S, N, G, H, seed):
           f"max_abs_err={err!r} (rtol=atol={KERNEL_TOL})")
     return err
 
+def check_order(label, sysc, S, N, G, seed):
+    """Both power-topology kernels sum in an order fixed by (N, G): row i
+    of a batch gives the bits of that row alone, and scalar loads (node
+    powers off a 16-byte boundary) give the bits of 128-bit loads. And
+    their programmatic launch waits for the torch kernel that writes the
+    node powers just before them (as on the engine path), eagerly and in
+    a CUDA graph. Plain and split group sums and all four fused outputs,
+    compared exactly."""
+    idle = sysc.power.idle_node_w
+    p = cooling.cdu_params(sysc.cooling, sysc.dt)
+    x = 4.5 * idle * torch.rand((S, N), generator=gen(seed), device=DEV)
+    _, ts, md, tb, tset = cooling_inputs(S, 1, G, 1, seed)
+    tb = tb[:, 0]
+    shifted = torch.empty(S * N + 1, device=DEV)[1:].view(S, N)
+    shifted.copy_(x)
+
+    def run(z, rows):
+        return (topo_ops.group_power(z, G),
+                *topo_ops.group_power_split(z, idle, G),
+                *topo_ops.fused_cooling(z, ts[rows], md[rows], tb[rows],
+                                        tset[rows], G, p))
+
+    every = slice(0, S)
+    base = run(x, every)
+    for a, b in zip(base, run(shifted, every)):
+        if not torch.equal(a, b):
+            raise SystemExit(f"kernel order {label}: scalar loads differ "
+                             f"from 128-bit loads")
+    for i in sorted({0, S // 2, S - 1}):
+        rows = slice(i, i + 1)
+        for a, b in zip(base, run(x[rows], rows)):
+            if not torch.equal(a[rows], b):
+                raise SystemExit(f"kernel order {label}: row {i} of {S} "
+                                 f"differs from the row alone")
+    # behind a torch kernel (not a copy: a programmatic launch relaxes
+    # the order only after a kernel) that writes the powers the kernels
+    # then read, which they must wait for: scaled powers, the bits of a
+    # run on powers written long before
+    src, staged = x.clone(), torch.empty_like(x)
+    scale = 0.5                    # a power of two: exact products
+    want = run((x * scale).contiguous(), every)
+    torch.cuda.synchronize()
+
+    def produced():
+        torch.mul(src, scale, out=staged)
+        return run(staged, every)
+
+    staged.zero_()
+    for a, b in zip(produced(), want):
+        if not torch.equal(a, b):
+            raise SystemExit(f"kernel order {label}: a launch behind the "
+                             f"kernel writing the powers differs from a "
+                             f"run on powers written before")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        produced()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = produced()
+    src.copy_(x.flip(0))
+    staged.zero_()
+    graph.replay()
+    for a, b in zip(replayed, run((x.flip(0) * scale).contiguous(), every)):
+        if not torch.equal(a, b):
+            raise SystemExit(f"kernel order {label}: a graph replay behind "
+                             f"the kernel writing the powers differs from "
+                             f"an eager run")
+    torch.cuda.synchronize()
+    print(f"kernel order {label} S={S} N={N} G={G} "
+          f"({power_topo.plan(N, G)}): every row equals the row alone, "
+          f"scalar loads equal 128-bit loads, and a launch behind the "
+          f"torch kernel writing the powers (eager and replayed from a "
+          f"graph) equals a run on powers written before, bit for bit, in "
+          f"both kernels")
+
 def build_phase():
     """Build every kernel from source, one nvcc per source, all at once."""
     t = time.perf_counter()
@@ -187,9 +274,80 @@ def build_phase():
         for line in log.splitlines():
             if "Function properties for" in line:
                 entry = re.search(r"(\w{0,24}I(?:Li\d+E)+)E", line)
-                fn = entry[1] if entry else ""
+                seg = re.search(r"(warp|cta)_kernelILb([01])E"
+                                r"\w*?(FusedOp|GroupOpILb([01])E)", line)
+                fn = entry[1] if entry else (
+                    f"{seg[1]}_kernel vec={seg[2]}" +
+                    (" fused" if seg[4] is None else f" split={seg[4]}")
+                    if seg else "")
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name} {fn}:", line.strip())
+
+def launch_floor_ms() -> float:
+    """Device time of the least kernel: a one-element ``zero_()`` replayed
+    from a CUDA graph, the floor a standalone launch cannot beat."""
+    one = torch.empty(1, device=DEV)
+    return graph_ms(lambda: one.zero_())
+
+def enqueue_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls with no
+    synchronisation in between: what the caller's thread pays to enqueue
+    the work (the card runs behind it)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+def f32_bound(n_bytes, n_ops):
+    """(ms, "bytes" | "operations") for float32 work outside the tensor
+    cores."""
+    tb, to = n_bytes / HBM_BYTES_S, n_ops / F32_FLOP_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+def topo_timing(card, name, label, x, G, kernel, plain, library, n_bytes,
+                n_ops):
+    """Graph times of a power-topology kernel on node powers ``x``, its
+    plain version and its library yardstick, beside the bound and the
+    replaced design's time; the kernel also behind a torch kernel that
+    writes ``x`` (its time over that kernel's alone: what a step pays
+    after its producer). Returns the kernels-line numbers."""
+    S, N = x.shape
+    shape = f"S={S} N={N} G={G}"
+    ms, plain_ms, lib_ms = graph_ms(kernel), graph_ms(plain), graph_ms(library)
+    producer = lambda: x.mul_(1.0)
+    after_ms = graph_ms(lambda: (producer(), kernel())) - graph_ms(producer)
+    bound_ms, bound_by = f32_bound(n_bytes, n_ops)
+    print(f"[{card}] {name} {label} {shape} on the card (CUDA graph): kernel "
+          f"{ms!r} ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, bound "
+          f"{bound_ms!r} ms ({bound_by}: {n_bytes} B, {n_ops} ops), "
+          f"{bound_ms / ms!r} of its bound; behind a torch kernel writing "
+          f"the powers: {after_ms!r} ms more than it alone")
+    before_ms, where = BEFORE_MS[(name, label)]
+    print(f"[{card}] {name} {label}: before {before_ms!r} ms ({where}) -> "
+          f"now {ms!r} ms, {before_ms / ms!r}x faster")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+def fused_timing(card, label, sysc, S, N, G, seed):
+    """``fused_cooling`` timed at one shape (one hall), with the library
+    yardstick: one reduction over the same spans, without the CDU update
+    (the port never calls it)."""
+    p = cooling.cdu_params(sysc.cooling, sysc.dt)
+    x, ts, md, tb, tset = cooling_inputs(S, N, G, 1, seed)
+    tb_g = tb.expand(S, G)
+    kernel = lambda: topo_ops.fused_cooling(x, ts, md, tb_g, tset, G, p)
+    plain = lambda: topo_ref.fused_cooling_ref(x, ts, md, tb_g, tset, G, p)
+    library = lambda: torch.sum(x.view(S, G, N // G), -1)
+    n_bytes = 4 * (S * N + 4 * S * G + 4 * S * G)   # each input once, outputs once
+    n_ops = S * N + 16 * S * G                       # adds + the CDU update
+    t = topo_timing(card, "fused_cooling", label, x, G, kernel, plain,
+                    library, n_bytes, n_ops)
+    return t, kernel, plain, library
 
 def kernel_phase(card):
     fr, fu = get_system("frontier"), get_system("fugaku")
@@ -197,36 +355,34 @@ def kernel_phase(card):
     check_kernel("frontier-5halls", fr, 8, 9600, 25, 5, 2)
     check_kernel("fugaku", fu, 8, 158976, 32, 1, 3)
     check_kernel("ragged", fr, 8, 9601, 25, 1, 4)
+    check_kernel("marconi100", get_system("marconi100"), 8, 980, 10, 1, 7)
+    check_kernel("empty last group", fr, 3, 9, 4, 1, 8)
+    check_kernel("fugaku 4 halls", fu, 2, 158976, 32, 4, 9)
+    check_order("frontier", fr, 12, 9600, 25, 16)
+    check_order("fugaku", fu, 12, 158976, 32, 17)
 
-    # timing at the main path's shape: Frontier, 8 scenarios, one hall
-    S, N, G = 8, 9600, 25
-    p = cooling.cdu_params(fr.cooling, fr.dt)
-    x, ts, md, tb, tset = cooling_inputs(S, N, G, 1, 5)
-    tb_g = tb.expand(S, G)
-    kernel = lambda: topo_ops.fused_cooling(x, ts, md, tb_g, tset, G, p)
-    plain = lambda: topo_ref.fused_cooling_ref(x, ts, md, tb_g, tset, G, p)
-    # yardstick only (the port never calls it): one library reduction over
-    # the same spans, without the CDU update
-    library = lambda: torch.sum(x.view(S, G, N // G), -1)
-    ms, plain_ms, lib_ms = graph_ms(kernel), graph_ms(plain), graph_ms(library)
+    # timing at the main path's shape (Frontier, 8 scenarios, one hall)
+    # and at Fugaku's width
+    t, kernel, plain, library = fused_timing(card, "frontier", fr, 8, 9600,
+                                             25, 5)
+    fugaku, *_ = fused_timing(card, "fugaku", fu, 8, 158976, 32, 6)
+    floor_ms = launch_floor_ms()
     eager = {name: cuda_ms(f) for name, f in
              (("kernel", kernel), ("plain", plain), ("torch.sum", library))}
-    n_bytes = 4 * (S * N + 4 * S * G + 4 * S * G)   # each input once, outputs once
-    n_ops = S * N + 16 * S * G                       # adds + the CDU update
-    bound_ms = max(n_bytes / HBM_BYTES_S, n_ops / F32_FLOP_S) * 1e3
-    bound_by = "bytes" if n_bytes / HBM_BYTES_S >= n_ops / F32_FLOP_S \
-        else "operations"
-    print(f"[{card}] fused_cooling S={S} N={N} G={G} on the card (CUDA "
-          f"graph): kernel {ms!r} ms, plain {plain_ms!r} ms, torch.sum "
-          f"{lib_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: {n_bytes} B, "
-          f"{n_ops} ops)")
+    enqueue = {name: enqueue_us(f) for name, f in
+               (("kernel", kernel), ("torch.sum", library))}
+    print(f"[{card}] launch floor (one-element zero_, CUDA graph): "
+          f"{floor_ms!r} ms; fused_cooling frontier {t['ms']!r} ms = floor "
+          f"+ {t['ms'] - floor_ms!r} ms; fugaku {fugaku['ms']!r} ms")
     print(f"[{card}] fused_cooling per eager call, host included: "
           + ", ".join(f"{k} {v!r} ms" for k, v in eager.items()))
+    print(f"[{card}] fused_cooling host enqueue per call (1,000 calls, no "
+          f"synchronisation): "
+          + ", ".join(f"{k} {v!r} us" for k, v in enqueue.items()))
     return dict(name="fused_cooling", route="cuda",
                 source="src/repro_torch/kernels/power_topo/csrc/fused_cooling.cu",
                 replaces="src/repro/kernels/power_topo/power_topo.py:91",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                launches=None, max_abs_err=err, **t)
 
 def check_group_kernel(label, S, N, G, idle, seed):
     """Both modes of the group-power kernel against their plain versions
@@ -253,47 +409,61 @@ def check_group_kernel(label, S, N, G, idle, seed):
           f"max_abs_err={err!r} (rtol={GROUP_RTOL}, atol={GROUP_ATOL} W)")
     return err
 
-def group_kernel_phase(card):
-    fr, fu = get_system("frontier"), get_system("fugaku")
-    idle = fr.power.idle_node_w
-    err = check_group_kernel("frontier", 12, 9600, 25, idle, 11)
-    check_group_kernel("fugaku", 8, 158976, 32, fu.power.idle_node_w, 12)
-    check_group_kernel("ragged", 12, 9601, 25, idle, 13)
-
-    # timing at the grid sweep's shape in the mode it runs (split)
-    S, N, G = len(GRID_SWEEP), fr.n_nodes, fr.cooling.n_groups
-    g = torch.Generator(device=DEV).manual_seed(14)
+def group_timing(card, label, S, N, G, idle, seed):
+    """``group_power`` timed at one shape in the mode the grid path runs
+    (split), with the library yardstick: clamp, subtract and two library
+    reductions over the same spans (the port never calls it)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
     x = 4.5 * idle * torch.rand((S, N), generator=g, device=DEV)
     kernel = lambda: topo_ops.group_power_split(x, idle, G)
     plain = lambda: topo_ref.group_power_split_ref(x, idle, G)
     view = x.view(S, G, N // G)
 
     def library():
-        # yardstick only (the port never calls it): clamp, subtract and
-        # two library reductions over the same spans
         f = torch.clamp(view, max=idle)
         return f.sum(-1), (view - f).sum(-1)
 
-    ms, plain_ms, lib_ms = graph_ms(kernel), graph_ms(plain), graph_ms(library)
-    plain_mode_ms = graph_ms(lambda: topo_ops.group_power(x, G))
-    eager = {name: cuda_ms(f) for name, f in
-             (("kernel", kernel), ("plain", plain), ("library", library))}
     n_bytes = 4 * (S * N + 2 * S * G)       # node powers once, two outputs
     n_ops = 4 * S * N                       # min, subtract, two adds a node
-    bound_ms = max(n_bytes / HBM_BYTES_S, n_ops / F32_FLOP_S) * 1e3
-    bound_by = "bytes" if n_bytes / HBM_BYTES_S >= n_ops / F32_FLOP_S \
-        else "operations"
-    print(f"[{card}] group_power split S={S} N={N} G={G} on the card (CUDA "
-          f"graph): kernel {ms!r} ms, plain {plain_ms!r} ms, library "
-          f"{lib_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: {n_bytes} B, "
-          f"{n_ops} ops); plain mode {plain_mode_ms!r} ms")
+    t = topo_timing(card, "group_power split", label, x, G, kernel, plain,
+                    library, n_bytes, n_ops)
+    return t, x, kernel, plain, library
+
+def group_kernel_phase(card):
+    fr, fu = get_system("frontier"), get_system("fugaku")
+    idle = fr.power.idle_node_w
+    err = check_group_kernel("frontier", 12, 9600, 25, idle, 11)
+    check_group_kernel("fugaku", 8, 158976, 32, fu.power.idle_node_w, 12)
+    check_group_kernel("ragged", 12, 9601, 25, idle, 13)
+    check_group_kernel("marconi100", 12, 980, 10, idle, 18)
+    check_group_kernel("empty groups", 3, 10, 8, idle, 19)
+    check_group_kernel("one CTA, 9 rounds", 2, 70000, 1, idle, 20)
+
+    # timing at the grid sweep's shape and at Fugaku's width
+    S, N, G = len(GRID_SWEEP), fr.n_nodes, fr.cooling.n_groups
+    t, x, kernel, plain, library = group_timing(card, "frontier", S, N, G,
+                                                idle, 14)
+    fugaku, *_ = group_timing(card, "fugaku", S, fu.n_nodes,
+                              fu.cooling.n_groups, fu.power.idle_node_w, 15)
+    plain_mode_ms = graph_ms(lambda: topo_ops.group_power(x, G))
+    floor_ms = launch_floor_ms()
+    eager = {name: cuda_ms(f) for name, f in
+             (("kernel", kernel), ("plain", plain), ("library", library))}
+    enqueue = {name: enqueue_us(f) for name, f in
+               (("kernel", kernel), ("library", library))}
+    print(f"[{card}] launch floor (one-element zero_, CUDA graph): "
+          f"{floor_ms!r} ms; group_power split frontier {t['ms']!r} ms = "
+          f"floor + {t['ms'] - floor_ms!r} ms; plain mode {plain_mode_ms!r} "
+          f"ms; fugaku {fugaku['ms']!r} ms")
     print(f"[{card}] group_power per eager call, host included: "
           + ", ".join(f"{k} {v!r} ms" for k, v in eager.items()))
+    print(f"[{card}] group_power host enqueue per call (1,000 calls, no "
+          f"synchronisation): "
+          + ", ".join(f"{k} {v!r} us" for k, v in enqueue.items()))
     return dict(name="group_power", route="cuda",
                 source="src/repro_torch/kernels/power_topo/csrc/group_power.cu",
                 replaces="src/repro/kernels/power_topo/power_topo.py:45",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                launches=None, max_abs_err=err, **t)
 
 def frontier_case():
     system = get_system("frontier")
@@ -328,7 +498,8 @@ def run_counted(run):
 
 def check_row_vs_solo(label, finals, hists, solo):
     """Sweep row 0 against a solo run of the same scenario: schedules
-    exactly, float series at rtol 1e-6. Returns whether bit-identical."""
+    exactly, every float series bit for bit (at rtol 1e-6 first, so a
+    miss says how far off it is)."""
     solo_f, solo_h = solo
     row_f, row_h = T.row(finals, 0), T.row(hists, 0)
     for name in ("jstate", "start", "end", "node_job"):
@@ -344,7 +515,9 @@ def check_row_vs_solo(label, finals, hists, solo):
         identical &= torch.equal(a, b)
     print(f"{label}: sweep row 0 vs solo run: schedules equal, float series "
           f"within rtol 1e-6, bit-identical={identical}")
-    return identical
+    if not identical:
+        raise SystemExit(f"{label}: sweep row 0 is not bit-identical to the "
+                         f"solo run")
 
 def admission_share(run):
     """(seconds in the admission loop, seconds in all) of ``run`` with the
@@ -403,6 +576,37 @@ def main_path(card, entry):
     print(f"[{card}] fused_cooling total on the main path: "
           f"{entry['ms'] * n_steps!r} ms on the card ({n_steps} launches x "
           f"{entry['ms']!r} ms) of {wall * 1e3!r} ms")
+
+def fugaku_path(card):
+    """A short no-grid sweep at Fugaku's full width: 158,976 nodes in 32
+    CDU groups (a span of 4,968 nodes, so fused_cooling runs its CTA
+    form: one 512-thread CTA a group), the Fugaku loader's 4,000-job day, the SWEEP scenarios, 2 h
+    at dt = 60 s. Launches must equal steps, and row 0 a solo run."""
+    system = get_system("fugaku")
+    js = loaders.load_fugaku()
+    js.assign_prepop_placement(0.0, system.n_nodes)
+    table = js.to_table()
+    scens = [T.Scenario.make(p, b) for p, b in SWEEP]
+    n_steps = int(round(FUGAKU_T1 / system.dt))
+    S, N, G = len(scens), system.n_nodes, system.cooling.n_groups
+    print(f"fugaku path: N={N} G={G} J={table.num_jobs} steps={n_steps} "
+          f"S={S}; fused_cooling plan {power_topo.plan(N, G)}")
+    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, FUGAKU_T1)
+    (finals, hists), wall, launches = run_counted(run)
+    print(f"[{card}] fugaku sweep: {n_steps} steps x {S} scenarios in "
+          f"{wall!r} s = {n_steps / wall!r} steps/s, launches {launches}")
+    if launches["fused_cooling"] != n_steps or launches["group_power"] != 0:
+        raise SystemExit(f"fugaku sweep of {n_steps} steps launched "
+                         f"{launches}")
+    check_run("fugaku sweep", finals, hists, n_steps, S)
+    for i, (p, b) in enumerate(SWEEP):
+        s = stats_mod.summarize(system, table, T.row(finals, i),
+                                T.row(hists, i))
+        print(f"  {p}:{b}: jobs_completed={s['jobs_completed']:.0f} "
+              f"avg_util={s['avg_util']:.4f} avg_pue={s['avg_pue']:.5f} "
+              f"t_tower_return_max_c={s['t_tower_return_max_c']:.3f}")
+    check_row_vs_solo("fugaku sweep", finals, hists, eng.simulate_static(
+        system, table, *SWEEP[0], 0.0, FUGAKU_T1))
 
 def grid_case():
     """frontier-grid-6h: Frontier with benchmarks/fig_carbon.py's DVFS
@@ -552,10 +756,11 @@ LM_TOL = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 1e-2},
           "wkv_state": {torch.float32: 2e-4, torch.bfloat16: 2e-4},
           "ssd": {torch.float32: 3e-4, torch.bfloat16: 3e-4}}
 LM_DTYPES = (torch.bfloat16, torch.float32)
-# Device times of the kernels the tensor-core ones replaced on the bf16
-# path (the CUDA-core flash kernel, the per-token SSD and WKV
-# recurrences; PERF.md section 6) with where they were measured, printed
-# beside the new ones.
+# Device times of the kernels the redesigned ones replaced (on the bf16
+# path the CUDA-core flash kernel, the per-token SSD and WKV recurrences;
+# the first fused_cooling and group_power designs, one block of 256
+# threads per group; PERF.md section 6) with where they were measured,
+# printed beside the new ones.
 BEFORE_MS = {
     ("flash_attention", "qwen2.5-3b"): (
         0.40369022369384766, "commit 38e3238 on NVIDIA H100 80GB HBM3, 700.00 W"),
@@ -564,7 +769,15 @@ BEFORE_MS = {
     ("ssd", "zamba2-7b"): (
         0.35346622467041017, "commit 38e3238 on NVIDIA H100 80GB HBM3, 700.00 W"),
     ("wkv", "rwkv6-7b"): (
-        0.3395753479003906, "commit 1d75dc0 on NVIDIA H100 80GB HBM3, 700.00 W")}
+        0.3395753479003906, "commit 1d75dc0 on NVIDIA H100 80GB HBM3, 700.00 W"),
+    ("fused_cooling", "frontier"): (
+        0.00219651198387146, "commit 8df0e84 on NVIDIA H100 80GB HBM3, 700.00 W"),
+    ("fused_cooling", "fugaku"): (
+        0.0032528319358825684, "commit 8df0e84 on NVIDIA H100 80GB HBM3, 700.00 W"),
+    ("group_power split", "frontier"): (
+        0.0020456318855285646, "commit 8df0e84 on NVIDIA H100 80GB HBM3, 700.00 W"),
+    ("group_power split", "fugaku"): (
+        0.0032296960353851317, "commit 8df0e84 on NVIDIA H100 80GB HBM3, 700.00 W")}
 
 def gen(seed):
     return torch.Generator(device=DEV).manual_seed(seed)
@@ -977,6 +1190,8 @@ def main():
     elapsed("frontier-sweep-6h")
     grid_path(card, group)
     elapsed("frontier-grid-6h")
+    fugaku_path(card)
+    elapsed("fugaku-sweep-2h")
     serve_path(card, lm)
     elapsed("LM serving")
     small_reference()

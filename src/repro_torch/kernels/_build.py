@@ -4,9 +4,11 @@ Each kernel family keeps its sources in ``csrc/<name>.cu`` beside its
 module. A source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C entry point ``<name>_launch`` at first use, into
 ``build/`` beside the module (a directory git ignores), and bound with
-``ctypes``. A library's file name carries a digest of its source and the
-flags, so an edited source is rebuilt and a built one is reused. Nothing
-here runs at import time, so the CPU-only tests can import every module.
+``ctypes``. A library's file name carries a digest of its source, of
+every file of ``csrc/`` that the source includes (``#include "..."``,
+followed through nested includes) and of the flags, so an edited source
+or header is rebuilt and a built one is reused. Nothing here runs at
+import time, so the CPU-only tests can import every module.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -26,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 build_logs: dict = {}  # kernel name -> nvcc's output of its last build (ptxas use)
 
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -59,12 +64,28 @@ class Library:
     def build_dir(self) -> pathlib.Path:
         return self.here / "build"
 
+    def sources(self, name: str) -> list[pathlib.Path]:
+        """``csrc/<name>.cu`` and every file beside it that it includes
+        with quotes, directly or through another include, each once, in
+        the order first reached."""
+        todo, seen = [self.here / "csrc" / f"{name}.cu"], []
+        while todo:
+            path = todo.pop(0)
+            if path in seen:
+                continue
+            seen.append(path)
+            near = (path.parent / inc.decode()
+                    for inc in _INCLUDE.findall(path.read_bytes()))
+            todo += [p.resolve() for p in near if p.is_file()]
+        return seen
+
     def target(self, name: str) -> tuple[pathlib.Path, pathlib.Path]:
-        """(source, library path) of kernel ``name``."""
-        src = self.here / "csrc" / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() +
+        """(source, library path) of kernel ``name``; the path's digest
+        covers the source, what it includes and the flags."""
+        files = self.sources(name)
+        digest = hashlib.sha256(b"".join(f.read_bytes() for f in files) +
                                 " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return src, self.build_dir / f"lib{name}-{digest}.so"
+        return files[0], self.build_dir / f"lib{name}-{digest}.so"
 
     def fn(self, name: str):
         """The bound ``<name>_launch`` entry point, built on first use."""
@@ -113,11 +134,17 @@ def build_all(*libs: Library) -> dict:
 
 def launch(lib: Library, name: str, device: torch.device, *args) -> None:
     """Call ``<name>_launch(*args, stream)`` on ``device``'s current stream
-    and raise if the launch reported a CUDA error."""
+    and raise if the launch reported a CUDA error. The device guard is
+    entered only when ``device`` is not the current device, and the stream
+    is read as a raw pointer (``torch.cuda.current_stream`` builds a Python
+    object a call): both cost the host more than the launch itself."""
     fn = lib.fn(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")

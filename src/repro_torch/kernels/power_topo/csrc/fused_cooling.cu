@@ -13,95 +13,94 @@
 //   t_sup'  = t_sup + (max(t_set, t_basin + q/UA) - t_sup) * a_hx
 //
 // Bound: device memory. The S x N node-power read is the only large
-// operand (S=8, N=9600: 307 KB per step), with about one add per 4 bytes
-// read. Design: one block per (s, g) walks its own span with coalesced
-// loads (the TPU's lane-padded (S_block, span) tile is not carried over),
-// each thread keeps a partial sum, a warp-shuffle plus shared-memory
-// reduction forms q, and one thread applies the CDU update and writes the
-// four outputs, so q never round-trips through device memory. At Frontier
-// shape the bound is well under a microsecond and the launch dominates.
+// operand (Frontier, S=8: 307 KB; Fugaku: 5.1 MB), about one add per 4
+// bytes. The reduction is segment_sum.cuh's (one warp per group at
+// Frontier's span, one 512-thread CTA per group at Fugaku's); the
+// group's leader thread loads the CDU state (t_supply, mdot, t_basin,
+// t_set) at entry, so that round trip overlaps the node loads instead of
+// following them, then applies the update and writes the four outputs, so
+// q never round-trips through device memory. The TPU's lane-padded
+// (S_block, span) tile is not carried over.
+//
+// t_basin is read per group ([S, G] strides), per scenario (stride 0 over
+// g) or per hall: with `hall` non-null, group g reads column hall[g] of an
+// [S, H] tensor, so the engine's group -> hall gather is no launch of its
+// own.
 //
 // Build without --use_fast_math and with --fmad=false: the reference
 // divides in IEEE f32 and rounds every product before the following add.
 
-#include <cuda_runtime.h>
+#include "segment_sum.cuh"
+
+// Outside the anonymous namespace: the C entry point's signature names it.
+struct FusedArgs {       // mirrors power_topo.py _FusedArgs
+  segsum::Plan plan;
+  long long tb_s, tb_g;  // t_basin strides (elements)
+  long long ts_s, ts_g;  // t_set strides (elements)
+  float a_valve;         // min(dt / tau_valve, 1)
+  float a_hx;            // min(dt / tau_hx, 1)
+  float cp;              // water specific heat (J/(kg K))
+  float cp_dt_design;    // cp * design delta-T
+  float ua;              // facility HX conductance per group (W/K)
+  float mdot_min;        // valve floor (kg/s)
+  float mdot_max;        // full-open flow (kg/s)
+};
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+struct FusedOp {
+  static constexpr bool kSplit = false;
+  float idle;  // unused: plain sums
+  const float* __restrict__ t_supply;
+  const float* __restrict__ mdot;
+  const float* __restrict__ t_basin;
+  const int* __restrict__ hall;  // null: t_basin is indexed by group
+  const float* __restrict__ t_set;
+  float* __restrict__ out;       // [4, S, G]: q, t_return, t_supply', mdot'
+  long long plane;               // S * G
+  FusedArgs a;
 
-struct CduScalars {
-  float a_valve;       // min(dt / tau_valve, 1)
-  float a_hx;          // min(dt / tau_hx, 1)
-  float cp;            // water specific heat (J/(kg K))
-  float cp_dt_design;  // cp * design delta-T (host product in double)
-  float ua;            // facility HX conductance per group (W/K)
-  float mdot_min;      // valve floor (kg/s)
-  float mdot_max;      // full-open flow (kg/s)
+  struct State {
+    float ts, md, tb, tset;
+  };
+
+  __device__ __forceinline__ State begin(int s, int g, long long i) const {
+    const int h = hall ? __ldg(hall + g) : g;
+    return State{__ldg(t_supply + i), __ldg(mdot + i),
+                 __ldg(t_basin + s * a.tb_s + h * a.tb_g),
+                 __ldg(t_set + s * a.ts_s + g * a.ts_g)};
+  }
+
+  __device__ __forceinline__ void end(int, int, long long i, const State& st,
+                                      const segsum::Sums<false>& sum) const {
+    const float q = sum.a;
+    const float dem = fminf(fmaxf(q / a.cp_dt_design, a.mdot_min), a.mdot_max);
+    const float md_new = st.md + (dem - st.md) * a.a_valve;
+    const float tgt = fmaxf(st.tset, st.tb + q / a.ua);
+    out[i] = q;
+    out[plane + i] = st.ts + q / (md_new * a.cp);
+    out[2 * plane + i] = st.ts + (tgt - st.ts) * a.a_hx;
+    out[3 * plane + i] = md_new;
+  }
 };
-
-__global__ void __launch_bounds__(kThreads)
-fused_cooling_kernel(const float* __restrict__ node_pw, int n_nodes, int span,
-                     int n_groups, const float* __restrict__ t_supply,
-                     const float* __restrict__ mdot,
-                     const float* __restrict__ t_basin, long long tb_s,
-                     long long tb_g, const float* __restrict__ t_set,
-                     long long tset_s, long long tset_g, CduScalars p,
-                     float* __restrict__ q_out, float* __restrict__ tr_out,
-                     float* __restrict__ tso_out, float* __restrict__ mdo_out) {
-  const int g = blockIdx.x;
-  const int s = blockIdx.y;
-  const long long lo = static_cast<long long>(g) * span;
-  const long long hi = min(lo + span, static_cast<long long>(n_nodes));
-  const float* row = node_pw + static_cast<long long>(s) * n_nodes;
-
-  float acc = 0.f;
-  for (long long n = lo + threadIdx.x; n < hi; n += kThreads) acc += row[n];
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-
-  __shared__ float warp_sum[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sum[warp] = acc;
-  __syncthreads();
-  if (warp != 0) return;
-  acc = lane < kWarps ? warp_sum[lane] : 0.f;
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane != 0) return;
-
-  const long long i = static_cast<long long>(s) * n_groups + g;
-  const float q = acc;
-  const float ts = t_supply[i];
-  const float md = mdot[i];
-  const float tb = t_basin[s * tb_s + g * tb_g];
-  const float tset = t_set[s * tset_s + g * tset_g];
-  const float dem = fminf(fmaxf(q / p.cp_dt_design, p.mdot_min), p.mdot_max);
-  const float md_new = md + (dem - md) * p.a_valve;
-  const float tgt = fmaxf(tset, tb + q / p.ua);
-  q_out[i] = q;
-  tr_out[i] = ts + q / (md_new * p.cp);
-  tso_out[i] = ts + (tgt - ts) * p.a_hx;
-  mdo_out[i] = md_new;
-}
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream` and returns
-// cudaGetLastError() as an int (0 = launched).
-extern "C" int fused_cooling_launch(
-    const float* node_pw, int n_scen, int n_nodes, int n_groups, int span,
-    const float* t_supply, const float* mdot, const float* t_basin,
-    long long tb_s, long long tb_g, const float* t_set, long long tset_s,
-    long long tset_g, float a_valve, float a_hx, float cp, float cp_dt_design,
-    float ua, float mdot_min, float mdot_max, float* q_out, float* tr_out,
-    float* tso_out, float* mdo_out, void* stream) {
-  const CduScalars p{a_valve, a_hx, cp, cp_dt_design, ua, mdot_min, mdot_max};
-  const dim3 grid(n_groups, n_scen);
-  fused_cooling_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      node_pw, n_nodes, span, n_groups, t_supply, mdot, t_basin, tb_s, tb_g,
-      t_set, tset_s, tset_g, p, q_out, tr_out, tso_out, mdo_out);
-  return static_cast<int>(cudaGetLastError());
+// Plain C entry point (bound with ctypes). `args` is a host struct (the
+// launch plan, strides and CDU scalars, packed once per shape and
+// parameter set); `vec` selects 128-bit loads (only when the plan allows
+// them and node_pw is 16-byte aligned: the order of the adds is the same
+// either way). Launches on `stream` and returns the CUDA error as an int
+// (0 = launched).
+extern "C" int fused_cooling_launch(const float* node_pw, const float* t_supply,
+                                    const float* mdot, const float* t_basin,
+                                    const int* hall, const float* t_set,
+                                    float* out, const FusedArgs* args, int vec,
+                                    void* stream) {
+  const FusedOp op{0.f, t_supply, mdot, t_basin, hall, t_set, out,
+                   static_cast<long long>(args->plan.n_scen) *
+                       args->plan.n_groups,
+                   *args};
+  return static_cast<int>(segsum::launch(
+      node_pw, args->plan, vec, op, static_cast<cudaStream_t>(stream)));
 }

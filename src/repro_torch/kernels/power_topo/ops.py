@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.power_topo import power_topo
 from repro_torch.kernels.power_topo.ref import (CduParams, fused_cooling_ref,
+                                                fused_cooling_hier_ref,
                                                 group_power_ref,
                                                 group_power_split_ref,
                                                 hall_power_ref)
@@ -21,7 +22,7 @@ from repro_torch.kernels.power_topo.ref import (CduParams, fused_cooling_ref,
 def group_power(node_pw: torch.Tensor, n_groups: int) -> torch.Tensor:
     """Segment sum of per-node power over contiguous CDU-group spans:
     f32[S, N] -> f32[S, G] (W)."""
-    if node_pw.device.type == "cpu":
+    if node_pw.is_cpu:
         return group_power_ref(node_pw, n_groups)
     return power_topo.group_power_cuda(node_pw, n_groups)
 
@@ -32,7 +33,7 @@ def group_power_split(node_pw: torch.Tensor, idle_w: float,
     f32[S, N] -> (floor_g, dyn_g), each f32[S, G] (W), the sums of
     ``min(p, idle_w)`` and of ``p - min(p, idle_w)``. On the card one
     launch reads ``node_pw`` once for both sums."""
-    if node_pw.device.type == "cpu":
+    if node_pw.is_cpu:
         return group_power_split_ref(node_pw, idle_w, n_groups)
     return power_topo.group_power_cuda(node_pw, n_groups, idle_w=idle_w)
 
@@ -52,14 +53,11 @@ def fused_cooling(node_pw: torch.Tensor, t_supply: torch.Tensor,
     Returns:
       (q, t_return, t_supply_new, mdot_new), each f32[S, G].
     """
-    if node_pw.device.type == "cpu":
+    if node_pw.is_cpu:
         return fused_cooling_ref(node_pw, t_supply, mdot, t_basin, t_set,
                                  n_groups, params)
-    S = node_pw.shape[0]
-    col = lambda a: (a[:, None] if a.ndim == 1 else a).expand(S, n_groups)
-    return power_topo.fused_cooling_cuda(node_pw, t_supply, mdot,
-                                         col(t_basin), col(t_set), n_groups,
-                                         params)
+    return power_topo.fused_cooling_cuda(node_pw, t_supply, mdot, t_basin,
+                                         t_set, n_groups, params)
 
 
 def hall_power(group_q: torch.Tensor, hall_of_group,
@@ -71,8 +69,14 @@ def hall_power(group_q: torch.Tensor, hall_of_group,
 
 
 @functools.lru_cache(maxsize=32)
-def _hog(hall_of_group: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(hall_of_group, dtype=torch.int64, device=device)
+def _halls(hall_of_group: tuple, n_halls: int, device: torch.device):
+    """(the halls as a tuple of ints, the same as i32[G] on ``device``),
+    checked below H."""
+    hog = tuple(int(h) for h in hall_of_group)
+    if not all(0 <= h < n_halls for h in hog):
+        raise ValueError(f"fused_cooling_hier: hall_of_group {hog} names a "
+                         f"hall outside [0, {n_halls})")
+    return hog, torch.tensor(hog, dtype=torch.int32, device=device)
 
 
 def fused_cooling_hier(node_pw: torch.Tensor, t_supply: torch.Tensor,
@@ -92,8 +96,13 @@ def fused_cooling_hier(node_pw: torch.Tensor, t_supply: torch.Tensor,
       (q, t_return, t_supply_new, mdot_new, q_hall): per-group pieces
       f32[S, G] plus per-hall heat sums f32[S, H].
     """
-    hog = tuple(int(h) for h in hall_of_group)
-    t_basin_g = t_basin_hall[..., _hog(hog, node_pw.device)]
-    q, t_ret, t_sup, md = fused_cooling(node_pw, t_supply, mdot, t_basin_g,
-                                        t_set, n_groups, params)
-    return q, t_ret, t_sup, md, hall_power(q, hog, t_basin_hall.shape[-1])
+    n_halls = t_basin_hall.shape[-1]
+    hog, hall = _halls(tuple(hall_of_group), n_halls, node_pw.device)
+    if node_pw.is_cpu:
+        return fused_cooling_hier_ref(node_pw, t_supply, mdot, t_basin_hall,
+                                      t_set, hog, n_groups, params)
+    # the kernel reads each group's hall basin itself: no gather launch
+    q, t_ret, t_sup, md = power_topo.fused_cooling_cuda(
+        node_pw, t_supply, mdot, t_basin_hall, t_set, n_groups, params,
+        hall=hall)
+    return q, t_ret, t_sup, md, hall_power(q, hog, n_halls)

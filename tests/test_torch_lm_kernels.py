@@ -39,6 +39,7 @@ from repro.kernels.rwkv6_wkv import wkv_decode_step as j_wkv_decode_step
 from repro.kernels.rwkv6_wkv import wkv_ref as j_wkv_ref
 from repro.kernels.rwkv6_wkv.rwkv6_wkv import wkv_pallas as j_wkv_pallas
 from repro_torch import kernels
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as t_flash
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -356,7 +357,10 @@ def test_every_kernel_family_shares_the_build_helper():
             assert src.is_file() and src.parent == lib.here / "csrc"
             assert out.parent == lib.here / "build"
             assert out.name.startswith(f"lib{name}-") and out.suffix == ".so"
-            assert len(lib.argtypes[name]) > 5
+            # device pointers and sizes (or a struct of them), then the
+            # stream
+            assert len(lib.argtypes[name]) >= 5
+            assert lib.argtypes[name][-1] is _build.P
 
 
 def _needs_card():
