@@ -14,6 +14,13 @@ through their entry points at full width and checks what comes out:
   under synthetic carbon, price and power-cap signals (the evening cap
   dip in the last 3 h), 12 (cap level x policy x weight) scenarios, which
   runs the group-power kernel once a step;
+* ``frontier-events-6h``, the grid path again under weather, failures
+  and demand response: ``frontier-grid-6h``'s machine, backlog and
+  signals, 8 (policy x summer trace or heat wave x failure seed and
+  rates) scenarios with node, CDU-group and tower-cell failures and a
+  demand-response cap step, one group-power launch a step; and the same
+  scenarios for 1 h without signals or DR, one fused cooling launch a
+  step;
 * ``fugaku-sweep-2h``, the no-grid sweep at Fugaku's full width (158,976
   nodes, 32 CDU groups, 4,000 jobs, 120 steps of 60 s, 8 scenarios),
   whose fused cooling launches give each group's span of 4,968 nodes
@@ -24,7 +31,8 @@ through their entry points at full width and checks what comes out:
   attention, WKV and SSD kernels, with a float32 self-check of each and
   the bf16 prefill's logits held to the float32 prefill's;
 
-and a small card-against-CPU check of each path. Before the paths, each
+and a small card-against-CPU check of each path (with weather and
+failures on, also of the event layer's draws). Before the paths, each
 kernel is held to its plain version at the paths' shapes and ragged ones
 and timed (CUDA graph, eager, host enqueue, the launch floor; for the
 power-topology kernels also at Fugaku's width), and the power-topology
@@ -61,8 +69,10 @@ from repro_torch.core import scheduler as sched  # noqa: E402
 from repro_torch.core import stats as stats_mod  # noqa: E402
 from repro_torch.core import types as T  # noqa: E402
 from repro_torch.cooling import model as cooling  # noqa: E402
+from repro_torch.cooling import weather as wsig  # noqa: E402
 from repro_torch.datasets import loaders  # noqa: E402
 from repro_torch.datasets.synthetic import WorkloadSpec, generate  # noqa: E402
+from repro_torch.events import EventConfig  # noqa: E402
 from repro_torch.grid import signals as gsig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -108,6 +118,20 @@ GRID_SWEEP = [("fcfs" if w == 0.0 else "carbon_aware", "first-fit",
     ("fcfs", "easy", dict(cap_scale=0.7)),
     ("carbon_aware", "easy", dict(carbon_weight=2.0, cap_scale=0.7))]
 GRID_T0_CLOCK = 14 * 3600.0  # signal clock 14:00-20:00: the 17-21 h dip
+# frontier-events-6h: two policies x (the summer trace, the same with an
+# 8 °C heat wave from 1 h to 4 h) x (seed 1 at the base failure rates,
+# seed 2 at 4x them), under a demand-response event announced at 1 h
+# with 30 min notice, holding 1 h at 0.6 of peak IT power
+EVENT_POLICIES = [("fcfs", "first-fit"), ("sjf", "easy")]
+BASE_RATES = dict(node_fail_rate=5e-7, cdu_fail_rate=2e-5,
+                  cell_fail_rate=2e-5)
+EVENT_FAILURES = [
+    dict(BASE_RATES, failure_seed=1.0, failure_corr=0.25, repair_s=3600.0),
+    dict({k: 4.0 * v for k, v in BASE_RATES.items()}, failure_seed=2.0,
+         failure_corr=0.25, repair_s=3600.0)]
+DR_AT = dict(dr_announce_s=3600.0, dr_notice_s=1800.0, dr_duration_s=3600.0)
+DR_CAP_FRAC = 0.6
+EVENTS_NOGRID_T1 = 3600.0    # the no-grid events run: 240 steps
 
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -670,14 +694,194 @@ def grid_path(card, entry):
           f"power_it <= cap_w + 1 W at every step of every row (largest "
           f"excess {float(over.max())!r} W)")
     # row 0 is fcfs:first-fit at cap scale 1, which simulate_static names
-    check_row_vs_solo("grid sweep", finals, hists, eng.simulate_static(
-        system, table, *GRID_SWEEP[0][:2], 0.0, FRONTIER_T1, signals=sig))
+    row0 = eng.simulate_static(system, table, *GRID_SWEEP[0][:2], 0.0,
+                               FRONTIER_T1, signals=sig)
+    check_row_vs_solo("grid sweep", finals, hists, row0)
     admit_s, total = admission_share(run)
     print(f"[{card}] grid admission loop: {admit_s!r} s of {total!r} s "
           f"= {admit_s / total!r} of step time (synchronised run)")
     print(f"[{card}] group_power total on the grid path: "
           f"{entry['ms'] * n_steps!r} ms on the card ({n_steps} launches x "
           f"{entry['ms']!r} ms) of {wall * 1e3!r} ms")
+    return row0, n_steps / wall
+
+def ops_per_step(run, first=4, last=8):
+    """aten operations dispatched per engine step (each launches at most
+    one kernel; the hand-written kernels' launches are not aten
+    operations), counted over steps [first, last) of ``run``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    step, seen = eng.engine_step, [0]
+
+    def counted(*a, **k):
+        seen[0] += 1
+        if first < seen[0] <= last:
+            with Count():
+                return step(*a, **k)
+        return step(*a, **k)
+
+    eng.engine_step = counted
+    try:
+        run()
+    finally:
+        eng.engine_step = step
+    return Count.n / (last - first)
+
+def events_case():
+    """frontier-events-6h: ``grid_case()`` under weather, failures and a
+    demand-response event. Returns (system, table, signals, n_steps,
+    scenarios without the DR knobs, their weather, the DR knobs, labels)."""
+    system, table, sig, n_steps = grid_case()
+    summer = wsig.synthetic_weather(n_steps, system.dt, t0=GRID_T0_CLOCK,
+                                    seed=5)
+    wave = wsig.heat_wave(summer, system.dt, start_s=3600.0,
+                          duration_s=3 * 3600.0, peak_amp_c=8.0)
+    dr = dict(DR_AT, dr_cap_w=DR_CAP_FRAC * system.n_nodes *
+              system.power.peak_node_w)
+    rows = [((p, b), (wname, w), f) for p, b in EVENT_POLICIES
+            for wname, w in (("summer", summer), ("heat wave", wave))
+            for f in EVENT_FAILURES]
+    scens = [dict(policy=p, backfill=b, **f) for (p, b), _, f in rows]
+    labels = [f"{p}:{b} {wname} seed {f['failure_seed']:.0f}"
+              for (p, b), (wname, _), f in rows]
+    return (system, table, sig, n_steps, scens, [w for _, (_, w), _ in rows],
+            dr, labels)
+
+def events_path(card, grid_row0, grid_steps_s):
+    """frontier-events-6h: the grid sweep under weather, failures and a
+    demand-response event, one group_power launch a step."""
+    system, table, sig, n_steps, knobs, weather, dr, labels = events_case()
+    scens = [T.Scenario.make(**k, **dr) for k in knobs]
+    S = len(scens)
+    print(f"events path frontier-events-6h: N={system.n_nodes} "
+          f"G={system.cooling.n_groups} C={system.cooling.n_tower_cells} "
+          f"J={table.num_jobs} steps={n_steps} S={S}; base rates "
+          f"{BASE_RATES} (x4 for seed 2), DR {dr}")
+    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, FRONTIER_T1,
+                                     signals=sig, weather=weather,
+                                     events=EventConfig())
+    (finals, hists), wall, launches = run_counted(run)
+    print(f"[{card}] events sweep: {n_steps} steps x {S} scenarios in "
+          f"{wall!r} s = {n_steps / wall!r} steps/s (grid sweep "
+          f"{grid_steps_s!r} steps/s in this run), launches {launches} = "
+          f"{launches['group_power'] / n_steps!r} group_power a step (grid "
+          f"sweep: 1.0)")
+    if launches["group_power"] != n_steps or launches["fused_cooling"] != 0:
+        raise SystemExit(f"events sweep of {n_steps} steps launched "
+                         f"{launches}")
+    check_run("events sweep", finals, hists, n_steps, S)
+    # the cap in force: the signal's, or the DR cap while the event holds
+    t = hists.t[0]
+    start = dr["dr_announce_s"] + dr["dr_notice_s"]
+    active = (t >= start) & (t < start + dr["dr_duration_s"])
+    dr_cap = torch.tensor(dr["dr_cap_w"], dtype=torch.float32, device=DEV)
+    want_cap = torch.minimum(sig.cap_w.to(DEV)[:n_steps],
+                             torch.where(active, dr_cap, torch.inf))
+    if not torch.equal(hists.cap_w, want_cap.expand(S, -1)):
+        raise SystemExit("events sweep: the recorded cap is not the "
+                         "signal's cap lowered by the DR event")
+    over = hists.power_it - hists.cap_w
+    if not (over <= 1.0).all():
+        raise SystemExit(f"events sweep: the cap is exceeded by up to "
+                         f"{float(over.max())!r} W")
+    ev = finals.events
+    checks = {"a job killed": ev.jobs_killed >= 1,
+              "a CDU group down": torch.isfinite(ev.group_down_until).any(1),
+              "a tower cell failed": torch.isfinite(ev.cell_down_until).any(1)}
+    for what, ok in checks.items():
+        if not ok.all():
+            raise SystemExit(f"events sweep: rows without {what}: "
+                             f"{torch.nonzero(~ok).flatten().tolist()}")
+    peak_basin = hists.t_basin.amax(1)
+    for i, label in enumerate(labels):
+        s = stats_mod.summarize(system, table, T.row(finals, i),
+                                T.row(hists, i))
+        print(f"  [{card}] {label}: "
+              f"jobs_completed={s['jobs_completed']:.0f} "
+              f"killed={s['ride_jobs_killed']:.0f} "
+              f"requeued={s['ride_jobs_requeued']:.0f} "
+              f"energy_unserved_mwh={s['ride_energy_unserved_mwh']!r} "
+              f"node_downtime_h={s['ride_node_downtime_h']!r} "
+              f"peak_it_mw={float(hists.power_it[i].max()) / 1e6!r} "
+              f"t_basin_max_c={float(peak_basin[i])!r} "
+              f"avg_wetbulb_c={s['avg_wetbulb_c']!r} "
+              f"avg_pue={s['avg_pue']:.5f}")
+    # rows are (policy, weather, failures): the heat wave rows are 2-3, 6-7
+    summer_rows, wave_rows = [0, 1, 4, 5], [2, 3, 6, 7]
+    if not (peak_basin[wave_rows] > peak_basin[summer_rows]).all():
+        raise SystemExit(f"events sweep: a heat-wave row's peak basin "
+                         f"temperature is not above its summer row's: "
+                         f"{peak_basin.tolist()}")
+    print(f"[{card}] events sweep: power_it <= min(signal cap, DR cap) "
+          f"+ 1 W at every step of every row (largest excess "
+          f"{float(over.max())!r} W); every row killed a job and lost a CDU "
+          f"group and a tower cell; every heat-wave row's peak basin above "
+          f"its summer row's")
+    solo = eng.simulate(system, table, scens[0], 0.0, FRONTIER_T1,
+                        signals=sig, weather=weather[0],
+                        events=EventConfig())
+    check_row_vs_solo("events sweep", finals, hists, solo)
+    for name, a in vars(solo[0].events).items():
+        if not torch.equal(a, getattr(ev, name)[0]):
+            raise SystemExit(f"events sweep: row 0's {name} differs from "
+                             f"the solo run's")
+    # events on at zero rates with DR off, under a constant trace at the
+    # config's wet-bulb: the grid sweep's row 0, bit for bit
+    const = wsig.constant_weather(n_steps, system.cooling.t_wetbulb_c)
+    zero_f, zero_h = eng.simulate(
+        system, table, T.Scenario.make(*EVENT_POLICIES[0]), 0.0, FRONTIER_T1,
+        signals=sig, weather=const, events=EventConfig())
+    (row_f, row_h) = grid_row0
+    same = all(torch.equal(getattr(zero_h, k), v) for k, v in
+               vars(row_h).items()) and all(
+        torch.equal(getattr(zero_f, k), getattr(row_f, k))
+        for k in ("jstate", "start", "end", "node_job", "energy_total",
+                  "jenergy", "emissions_kg", "energy_cost"))
+    if not same or float(zero_f.events.jobs_killed) != 0.0:
+        raise SystemExit("events sweep: events on at zero rates with a "
+                         "constant trace differ from the grid sweep's row 0")
+    print("events sweep: events on at zero rates, DR off, constant trace at "
+          "the config's wet-bulb: bit-identical to the grid sweep's row 0")
+    grid_ops = ops_per_step(lambda: eng.simulate_sweep(
+        system, table, [T.Scenario.make(p, b, **kw) for p, b, kw in
+                        GRID_SWEEP], 0.0, 12 * system.dt, signals=sig))
+    ev_ops = ops_per_step(lambda: eng.simulate_sweep(
+        system, table, scens, 0.0, 12 * system.dt, signals=sig,
+        weather=weather, events=EventConfig()))
+    print(f"[{card}] aten operations dispatched per step (steps 5-8): grid "
+          f"sweep {grid_ops!r}, events sweep {ev_ops!r}; kernel launches "
+          f"per step 1.0 (group_power) in both")
+
+def events_nogrid_path(card):
+    """The frontier-events-6h scenarios without signals or DR, 1 h: one
+    fused_cooling launch a step, row 0 bit-identical to its solo run."""
+    system, table, _, _, knobs, weather, _, _ = events_case()
+    n_steps = int(round(EVENTS_NOGRID_T1 / system.dt))
+    scens = [T.Scenario.make(**k) for k in knobs]
+    S = len(scens)
+    run = lambda: eng.simulate_sweep(system, table, scens, 0.0,
+                                     EVENTS_NOGRID_T1, weather=weather,
+                                     events=EventConfig())
+    (finals, hists), wall, launches = run_counted(run)
+    print(f"[{card}] no-grid events sweep: {n_steps} steps x {S} scenarios "
+          f"in {wall!r} s = {n_steps / wall!r} steps/s, launches {launches}")
+    if launches["fused_cooling"] != n_steps or launches["group_power"] != 0:
+        raise SystemExit(f"no-grid events sweep of {n_steps} steps "
+                         f"launched {launches}")
+    check_run("no-grid events sweep", finals, hists, n_steps, S)
+    print(f"[{card}] no-grid events sweep: jobs killed "
+          f"{finals.events.jobs_killed.tolist()}, node-hours down "
+          f"{(finals.events.node_downtime_s / 3600.0).tolist()}")
+    check_row_vs_solo("no-grid events sweep", finals, hists, eng.simulate(
+        system, table, scens[0], 0.0, EVENTS_NOGRID_T1, weather=weather[0],
+        events=EventConfig()))
 
 def small_case():
     system = build_system("marconi100", 64, 4)
@@ -687,23 +891,39 @@ def small_case():
     js.assign_prepop_placement(0.0, system.n_nodes)
     return system, js.to_table(80)
 
-def card_vs_cpu(label, system, table, scens, signals=None):
+def card_vs_cpu(label, system, table, scens, signals=None, weather=None,
+                events=None, t1=2 * 3600.0):
     """The card's engine (with the kernels) against the port's CPU engine
     (plain versions): schedules exactly, floats at 1e-4. ``throttle_frac``
     is 1 - c with c near 1, so it also gets atol 1e-6 (a one-ulp
-    difference in c from another summation order)."""
-    kw = dict(num_accounts=8, signals=signals)
-    fg, hg = eng.simulate_sweep(system, table, scens, 0.0, 2 * 3600.0, **kw)
-    fc, hc = eng.simulate_sweep(system, table, scens, 0.0, 2 * 3600.0, **kw,
+    difference in c from another summation order). With the event layer
+    the repair times also go through the card's ``log1p``: a schedule
+    that differs is reported with the first step whose counts differ."""
+    kw = dict(num_accounts=8, signals=signals, weather=weather,
+              events=events)
+    fg, hg = eng.simulate_sweep(system, table, scens, 0.0, t1, **kw)
+    fc, hc = eng.simulate_sweep(system, table, scens, 0.0, t1, **kw,
                                 device="cpu")
     for name in ("jstate", "start", "end", "node_job"):
         if not torch.equal(getattr(fg, name).cpu(), getattr(fc, name)):
-            raise SystemExit(f"{label}: card and CPU disagree on {name}")
+            counts = ("nodes_down", "n_killed", "n_running", "n_queued")
+            differ = torch.zeros_like(hc.t, dtype=torch.bool)
+            for c in counts:
+                differ |= getattr(hg, c).cpu() != getattr(hc, c)
+            steps = torch.nonzero(differ.any(0)).flatten().tolist()
+            raise SystemExit(f"{label}: card and CPU disagree on {name}; "
+                             f"first step whose {counts} differ: "
+                             f"{steps[0] if steps else None}")
     for name, a in vars(hc).items():
         atol = 1e-6 if name == "throttle_frac" else 1e-4
         torch.testing.assert_close(getattr(hg, name).cpu(), a, rtol=1e-4,
                                    atol=atol,
                                    msg=lambda m: f"{label} {name}: {m}")
+    if events is not None:
+        for name, a in vars(fc.events).items():
+            torch.testing.assert_close(getattr(fg.events, name).cpu(), a,
+                                       rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"{label} {name}: {m}")
     return fg, hg
 
 def small_reference():
@@ -737,6 +957,47 @@ def small_grid_reference():
     print(f"small grid reference (marconi100 x64, 4 halls, 3 scenarios, 2 h, "
           f"constant cap): card matches the CPU engine, schedules exact, "
           f"floats within 1e-4; {throttled} throttled scenario-steps")
+
+def small_events_reference(card):
+    """The event layer on the card against the CPU, on the 4-hall plant
+    for 1 h: node, CDU-group and cell failures at rates that fire within
+    the hour, one per-hall weather set per scenario; first without grid
+    signals (the fused cooling path), then under neutral signals with a
+    demand-response event (the group-power path)."""
+    system, table = small_case()
+    n = int(round(3600.0 / system.dt))
+    floor = system.n_nodes * system.power.idle_node_w
+    fails = [dict(failure_seed=3.0, node_fail_rate=5e-5, cdu_fail_rate=2e-4,
+                  failure_corr=0.5, repair_s=900.0),
+             dict(failure_seed=5.0, node_fail_rate=8e-5, cell_fail_rate=5e-4,
+                  repair_s=1200.0),
+             dict(failure_seed=7.0, node_fail_rate=2e-4, cdu_fail_rate=1e-4,
+                  cell_fail_rate=2e-4, failure_corr=1.0, repair_s=600.0)]
+    policies = [("fcfs", "easy"), ("sjf", "first-fit"),
+                ("thermal_aware", "none")]
+    weather = [wsig.stack_halls([wsig.heat_wave(
+        wsig.synthetic_weather(n, system.dt, seed=10 * i + h), system.dt,
+        900.0, 1800.0, 6.0 + h) for h in range(system.cooling.n_halls)])
+        for i in range(3)]
+    dr = dict(dr_announce_s=600.0, dr_notice_s=600.0, dr_duration_s=1200.0,
+              dr_cap_w=floor + 0.2 * (system.n_nodes *
+                                      system.power.peak_node_w - floor))
+    for label, signals, extra in (
+            ("small events reference", None, {}),
+            ("small events+DR reference", gsig.neutral(n), dr)):
+        scens = [T.Scenario.make(p, b, **f, **extra)
+                 for (p, b), f in zip(policies, fails)]
+        fg, hg = card_vs_cpu(label, system, table, scens, signals, weather,
+                             EventConfig(), t1=3600.0)
+        killed = fg.events.jobs_killed.tolist()
+        if min(killed) < 1:
+            raise SystemExit(f"{label}: a row killed no job: {killed}")
+        dr_note = ", DR" if extra else ""
+        print(f"[{card}] {label} (marconi100 x64, 4 halls, 3 scenarios, "
+              f"1 h, per-hall weather, failures{dr_note}): card "
+              f"matches the CPU engine, schedules exact, floats and event "
+              f"state within 1e-4; jobs killed {killed}, node-hours down "
+              f"{(fg.events.node_downtime_s / 3600.0).tolist()}")
 
 # ---------------------------------------------------------------------------
 # The LM serving path's kernels: flash attention, WKV, SSD.
@@ -1188,14 +1449,20 @@ def main():
     elapsed("build and kernel checks")
     main_path(card, fused)
     elapsed("frontier-sweep-6h")
-    grid_path(card, group)
+    grid_row0, grid_steps_s = grid_path(card, group)
     elapsed("frontier-grid-6h")
+    events_path(card, grid_row0, grid_steps_s)
+    del grid_row0
+    elapsed("frontier-events-6h")
+    events_nogrid_path(card)
+    elapsed("frontier-events no-grid 1 h")
     fugaku_path(card)
     elapsed("fugaku-sweep-2h")
     serve_path(card, lm)
     elapsed("LM serving")
     small_reference()
     small_grid_reference()
+    small_events_reference(card)
     small_lm_reference()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -23,9 +23,10 @@ Parasitic power: staged cube-law fans per hall, cube-law pumps with a
 Every state tensor carries the leading scenario axis S; per-group
 quantities are [S, G], per-hall [S, H]. ``step_from_node_power`` is the
 no-grid path (the fused kernel); ``step`` takes per-group heat, the
-throttled IT power of the grid path. The weather-driven wet-bulb and the
-event layer's failed cells belong to later slices: the wet-bulb is the
-config's static value.
+throttled IT power of the grid path. Both take this step's ambient
+wet-bulb from a weather trace (``repro_torch.cooling.weather``; the
+config's static value without one) and the event layer's failed tower
+cells (``repro_torch.events``), which also lose their passive windage.
 """
 from __future__ import annotations
 
@@ -129,12 +130,18 @@ def init_state(cfg: CoolingConfig, device="cpu") -> CoolingState:
         fan_stages=torch.zeros((H,), dtype=torch.float32, device=device))
 
 
-def _effective(cfg: CoolingConfig, state: CoolingState, setpoint_delta_c):
+def _effective(cfg: CoolingConfig, state: CoolingState, t_wetbulb_c,
+               setpoint_delta_c):
     """(per-hall ambient wet-bulb f32[S, H], effective supply setpoint
-    f32[S]) for this step (°C): the config's static wet-bulb, and its
-    setpoint shifted by ``Scenario.setpoint_delta_c`` (f32[S] or a
-    number)."""
-    t_wb = torch.full_like(state.t_basin, cfg.t_wetbulb_c)
+    f32[S]) for this step (°C). The wet-bulb is ``t_wetbulb_c`` (f32[S],
+    one per scenario for every hall, or f32[S, H]), the config's static
+    value when None; the setpoint is shifted by
+    ``Scenario.setpoint_delta_c`` (f32[S] or a number)."""
+    if t_wetbulb_c is None:
+        t_wb = torch.full_like(state.t_basin, cfg.t_wetbulb_c)
+    else:
+        t_wb = t_wetbulb_c if t_wetbulb_c.ndim == 2 else t_wetbulb_c[:, None]
+        t_wb = t_wb.expand(state.t_basin.shape)
     delta = torch.as_tensor(setpoint_delta_c, dtype=torch.float32,
                             device=state.t_basin.device)
     t_set = cfg.t_supply_setpoint_c + delta.expand(state.t_basin.shape[0])
@@ -148,13 +155,16 @@ def _cube(x: torch.Tensor) -> torch.Tensor:
 
 def _finish_step(cfg: CoolingConfig, state: CoolingState, dt: float,
                  t_wb, t_set, q, t_return, t_supply, mdot,
-                 cells_offline=0.0, q_hall=None
+                 cells_offline=0.0, cells_failed=None, q_hall=None
                  ) -> tuple[CoolingState, CoolingOut]:
     """Tower-side half of the step, vectorized over scenarios and halls:
     reuse split, fan staging, basin mass, parasitic power. ``q``/
     ``t_return``/``t_supply``/``mdot`` ([S, G]) come from the CDU update;
     ``t_wb`` is [S, H]; ``t_set`` [S]; ``cells_offline`` a number, f32[S]
-    or f32[S, H]; ``q_hall`` [S, H] when the caller already reduced it."""
+    or f32[S, H]; ``cells_failed`` the event layer's failed cells f32[S,
+    H] (None without it): they stack on maintenance and, unlike it, also
+    derate the passive windage path in proportion; ``q_hall`` [S, H]
+    when the caller already reduced it."""
     hs = halls(cfg, q.device)
     H = cfg.n_halls
     if q_hall is None:
@@ -182,8 +192,13 @@ def _finish_step(cfg: CoolingConfig, state: CoolingState, dt: float,
     off = torch.as_tensor(cells_offline, dtype=torch.float32, device=q.device)
     if off.ndim == 1:
         off = off[:, None]            # one count per scenario, every hall
+    passive_ua = hs.passive_ua
+    if cells_failed is not None:
+        cf = torch.minimum(torch.clamp(cells_failed, min=0.0), hs.cells)
+        off = off + cf
+        passive_ua = hs.passive_ua * (1.0 - cf / hs.cells)
     cells_on = torch.minimum(torch.clamp(hs.cells - off, min=0.0), hs.cells)
-    q_passive = hs.passive_ua * (state.t_basin - t_wb)
+    q_passive = passive_ua * (state.t_basin - t_wb)
     t_b_tgt = torch.maximum(t_wb + cfg.tower_approach_c,
                             (t_set - cfg.basin_margin_c)[:, None])
     drive = torch.clamp(state.t_basin - t_wb, min=0.5)
@@ -226,7 +241,9 @@ def _finish_step(cfg: CoolingConfig, state: CoolingState, dt: float,
 
 
 def step(cfg: CoolingConfig, state: CoolingState, group_heat_w: torch.Tensor,
-         dt: float, setpoint_delta_c=0.0, cells_offline=0.0
+         dt: float, setpoint_delta_c=0.0, cells_offline=0.0,
+         t_wetbulb_c: torch.Tensor | None = None,
+         cells_failed: torch.Tensor | None = None
          ) -> tuple[CoolingState, CoolingOut]:
     """Advance the plant by ``dt`` seconds from per-group heat (the grid
     path: the heat is the throttled IT power per CDU group).
@@ -237,38 +254,46 @@ def step(cfg: CoolingConfig, state: CoolingState, group_heat_w: torch.Tensor,
         number (``Scenario.setpoint_delta_c``).
       cells_offline: tower cells out for maintenance, a number, f32[S] or
         f32[S, H] (``Scenario.cells_offline``).
+      t_wetbulb_c: ambient wet-bulb (°C) from a weather trace, f32[S] or
+        f32[S, H] per hall; None takes the config's static value.
+      cells_failed: tower cells down from the event layer, f32[S, H];
+        None without it.
     Returns:
       (new_state, CoolingOut); the hall heat sums are formed from
       ``group_heat_w`` inside ``_finish_step``.
     """
-    t_wb, t_set = _effective(cfg, state, setpoint_delta_c)
+    t_wb, t_set = _effective(cfg, state, t_wetbulb_c, setpoint_delta_c)
     hs = halls(cfg, group_heat_w.device)
     t_basin_g = state.t_basin[:, hs.hog_idx]   # each group sees its hall's basin
     q, t_return, t_supply, mdot = cdu_update_ref(
         group_heat_w, state.t_supply, state.mdot, t_basin_g, t_set,
         cdu_params(cfg, dt))
     return _finish_step(cfg, state, dt, t_wb, t_set, q, t_return, t_supply,
-                        mdot, cells_offline)
+                        mdot, cells_offline, cells_failed)
 
 
 def step_from_node_power(cfg: CoolingConfig, state: CoolingState,
                          node_pw: torch.Tensor, dt: float,
-                         setpoint_delta_c=0.0, cells_offline=0.0
+                         setpoint_delta_c=0.0, cells_offline=0.0,
+                         t_wetbulb_c: torch.Tensor | None = None,
+                         cells_failed: torch.Tensor | None = None
                          ) -> tuple[CoolingState, CoolingOut, torch.Tensor]:
     """Advance the plant by ``dt`` seconds from per-node power f32[S, N]
     (W): the node->CDU->hall reduction and the CDU loop update run as one
     fused pass (``kernels.power_topo.fused_cooling_hier``: the Hopper
     kernel on the card), and total IT power falls out of the hall sums.
+    The other arguments are ``step``'s.
 
     Returns:
       (new_state, CoolingOut, p_it) with ``p_it`` = f32[S] total IT power (W).
     """
-    t_wb, t_set = _effective(cfg, state, setpoint_delta_c)
+    t_wb, t_set = _effective(cfg, state, t_wetbulb_c, setpoint_delta_c)
     q, t_return, t_supply, mdot, q_hall = topo_ops.fused_cooling_hier(
         node_pw, state.t_supply, state.mdot, state.t_basin, t_set,
         cfg.hall_of_group(), cfg.n_groups, cdu_params(cfg, dt))
     new, out = _finish_step(cfg, state, dt, t_wb, t_set, q, t_return,
-                            t_supply, mdot, cells_offline, q_hall=q_hall)
+                            t_supply, mdot, cells_offline, cells_failed,
+                            q_hall=q_hall)
     return new, out, sum_exact(q_hall)
 
 
@@ -286,7 +311,7 @@ def thermal_now(cfg: CoolingConfig, state: CoolingState,
     t_sup_h = hall_max_ref(state.t_supply, hs.hog, cfg.n_halls)
     soft = cfg.t_return_limit_c - cfg.thermal_margin_c
     excess_h = torch.clamp(t_ret_h - soft, min=0.0) / cfg.thermal_margin_c
-    _, t_set = _effective(cfg, state, setpoint_delta_c)
+    _, t_set = _effective(cfg, state, None, setpoint_delta_c)
     overheat_h = t_sup_h > (t_set + cfg.t_supply_margin_c)[:, None]
     return ThermalNow(excess=excess_h.amax(-1),
                       overheat=overheat_h.any(-1),

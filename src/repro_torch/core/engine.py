@@ -3,6 +3,9 @@
 Main loop per step (the paper's four steps), batched over scenarios:
   (1) prepare     -- clear completed jobs, free their nodes, fold accounting;
   (2) arrivals    -- move submitted jobs into the queue;
+  (2b) failures   -- with the event layer: draw failures and repairs, kill
+                     the jobs on unavailable nodes, evaluate the
+                     demand-response event;
   (3) schedule    -- policy sort + bounded admission (``scheduler``),
                      cap-aware when grid signals are given and thermally
                      throttled when cooling loses its setpoint;
@@ -17,9 +20,13 @@ Main loop per step (the paper's four steps), batched over scenarios:
 The JAX engine scans one step function with ``lax.scan`` and batches
 scenarios with ``vmap``. Here every tensor of the state carries the
 scenario axis S and the scan is a Python loop over steps. Grid signals
-(``repro_torch.grid.signals.GridSignals``) are shared by every scenario
-and gathered at each scenario's step. The event layer and weather traces
-are later slices.
+(``repro_torch.grid.signals.GridSignals``) and weather traces
+(``repro_torch.cooling.weather.WeatherSignals``) are shared by every
+scenario, or for weather stacked one trace per scenario, and gathered at
+each scenario's step. The event layer (``repro_torch.events``) carries
+its state in ``SimState.events`` and draws each scenario's failures from
+that scenario's seed; demand response needs grid signals (neutral ones
+serve when there is no grid trace).
 
 Entry points (``simulate``, ``simulate_static``, ``simulate_sweep``) run
 on ``device="cuda"`` unless the caller passes ``device="cpu"``; without a
@@ -34,10 +41,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.cooling import model as cooling
+from repro_torch.cooling import weather as wsig
 from repro_torch.core import accounts as acct_mod
 from repro_torch.core import resource_manager as rm
 from repro_torch.core import scheduler as sched
 from repro_torch.core import types as T
+from repro_torch.events import process as ev_mod
 from repro_torch.grid import powercap
 from repro_torch.grid import signals as gsig
 from repro_torch.power import losses as plosses
@@ -50,13 +59,15 @@ from repro_torch.systems.config import SystemConfig
 # ---------------------------------------------------------------------------
 def init_state(system: SystemConfig, table: T.JobTable, t0: float,
                t1: float, accounts: T.AccountStats | None = None,
-               num_accounts: int = 64) -> T.SimState:
+               num_accounts: int = 64,
+               events: ev_mod.EventConfig | None = None) -> T.SimState:
     """Initial engine state for the window ``[t0, t1]`` (seconds), on the
     table's device and without the scenario axis (as the reference's).
 
     Dismisses jobs entirely outside the window, prepopulates jobs already
     running at ``t0`` per the telemetry, queues jobs submitted but not yet
     started, and starts the cooling loop from its idle-plant condition.
+    With ``events`` the state carries an all-healthy ``EventState``.
     """
     dev = table.submit.device
     J = table.num_jobs
@@ -96,7 +107,9 @@ def init_state(system: SystemConfig, table: T.JobTable, t0: float,
         cooling=cooling.init_state(system.cooling, dev),
         energy_total=f32(0.0), energy_it=f32(0.0), energy_loss=f32(0.0),
         completed=f32(0.0), emissions_kg=f32(0.0), energy_cost=f32(0.0),
-        energy_cooling=f32(0.0), heat_reuse_j=f32(0.0))
+        energy_cooling=f32(0.0), heat_reuse_j=f32(0.0),
+        events=(None if events is None
+                else ev_mod.init_event_state(system, dev)))
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +137,9 @@ def _prepare_and_arrivals(system: SystemConfig, table: T.JobTable,
 def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
           thermal: cooling.ThermalNow, setpoint_delta_c, cells_offline,
           grid: gsig.GridNow | None = None,
-          cap_active: torch.Tensor | None = None
+          cap_active: torch.Tensor | None = None,
+          wx: wsig.WeatherNow | None = None,
+          ev_now: ev_mod.EventsNow | None = None
           ) -> Tuple[T.SimState, dict]:
     """Phase (4): cap enforcement + physics + accounting + telemetry.
 
@@ -135,10 +150,15 @@ def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
     completion latency for peak power. ``grid is None`` is "no grid
     layer": no accrual, no dilation, and the node->CDU segment reduction
     fuses with the cooling-loop update (``cooling.step_from_node_power``).
-    Returns the new state and this step's telemetry (``_history`` adds the
-    rows that are constant on this path).
+    ``wx`` is this step's weather (None: the config's static wet-bulb);
+    ``ev_now`` the failure pass's telemetry (None without the event
+    layer), whose failed tower cells degrade the plant. Returns the new
+    state and this step's telemetry (``_history`` adds the grid rows that
+    are constant without signals).
     """
     dt = system.dt
+    t_wb = None if wx is None else wx.t_wetbulb_c
+    cells_failed = None if ev_now is None else ev_now.cells_failed_hall
     # profiles are indexed by work-time progress, so a throttled job's
     # trace plays at its dilated tempo instead of wall-clock time
     job_pw = pmodel.job_node_power_elapsed(table, st.jstate, st.progress,
@@ -155,11 +175,11 @@ def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
         job_pw = powercap.throttle_power(job_pw, idle, cap.c)
         cool_state, cool = cooling.step(system.cooling, st.cooling,
                                         cap.group_heat, dt, setpoint_delta_c,
-                                        cells_offline)
+                                        cells_offline, t_wb, cells_failed)
     else:
         cool_state, cool, p_it = cooling.step_from_node_power(
             system.cooling, st.cooling, node_pw, dt, setpoint_delta_c,
-            cells_offline)
+            cells_offline, t_wb, cells_failed)
     n_racks = max(system.n_nodes // system.power.nodes_per_rack, 1)
     p_in, p_loss = plosses.conversion(system.power, p_it, float(n_racks))
     p_cool = cool.p_cooling
@@ -187,6 +207,18 @@ def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
     else:
         advanced = dict(progress=st.progress + torch.where(running, dt, 0.0))
     busy = float(system.n_nodes) - st.free_count.to(torch.float32)
+    zero = torch.zeros_like(st.t)
+    if ev_now is not None:
+        # down free nodes are parked at -2, outside the free pool:
+        # utilization counts work, not outages
+        busy = busy - ev_now.nodes_down
+    if wx is None:
+        t_wetbulb = torch.full_like(st.t, system.cooling.t_wetbulb_c)
+    elif t_wb.ndim == 2:              # per-hall traces: their mean
+        t_wetbulb = (t_wb.sum(-1, dtype=torch.float64) /
+                     t_wb.shape[-1]).to(torch.float32)
+    else:
+        t_wetbulb = t_wb
     rec = dict(
         t=st.t, power_it=p_it, power_loss=p_loss, power_cooling=p_cool,
         power_total=p_total, pue=cooling.pue(p_it, p_loss, p_cool),
@@ -202,7 +234,10 @@ def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
         power_it_hall=cool.q_hall_w, t_basin_hall=cool.t_basin_hall,
         t_supply_max_hall=cool.t_supply_max_hall,
         t_wetbulb_hall=cool.t_wetbulb_hall, cells_online=cool.cells_online,
-        overheat_hall=thermal.overheat_hall.to(torch.float32), **grid_rows)
+        overheat_hall=thermal.overheat_hall.to(torch.float32),
+        t_wetbulb=t_wetbulb,
+        nodes_down=zero if ev_now is None else ev_now.nodes_down,
+        n_killed=zero if ev_now is None else ev_now.n_killed, **grid_rows)
     new = dataclasses.replace(
         st, t=st.t + dt, step=st.step + 1, **advanced,
         jenergy=st.jenergy + job_e_step, cooling=cool_state,
@@ -216,77 +251,96 @@ def _tick(system: SystemConfig, table: T.JobTable, st: T.SimState,
 
 def engine_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
                 scen: T.Scenario, backfills: tuple[int, ...] | None = None,
-                signals: gsig.GridSignals | None = None
+                signals: gsig.GridSignals | None = None,
+                weather: wsig.WeatherSignals | None = None,
+                events: ev_mod.EventConfig | None = None
                 ) -> Tuple[T.SimState, dict]:
-    """One engine step, phases (1)-(4), for a batch of scenarios (no
-    weather trace, no event layer). ``signals`` (on the state's device)
-    enables the grid layer; ``backfills``: see
-    ``scheduler.schedule_step``."""
+    """One engine step, phases (1)-(4), for a batch of scenarios.
+    ``signals`` (on the state's device) enables the grid layer,
+    ``weather`` drives the towers' ambient wet-bulb, ``events`` enables
+    the failure and demand-response layer (the state must carry an
+    ``EventState``); ``backfills``: see ``scheduler.schedule_step``."""
     st = _prepare_and_arrivals(system, table, st)
+    ev_now = dr = None
+    if events is not None:
+        # phase (2b): failures and repairs, kills, the availability map;
+        # the DR event is evaluated at the same instant
+        st, ev_now = ev_mod.apply_failures(events, system, table, st, scen)
+        dr = ev_mod.dr_now(scen, st.t)
+    wx = None if weather is None else wsig.at_step(weather, st.step)
     # cooling-pressure signals for the thermal_aware policy + admission gate
     thermal = cooling.thermal_now(system.cooling, st.cooling,
                                   scen.setpoint_delta_c)
     if signals is None:
-        # no grid layer: no admission power pass, no cap machinery
+        # no grid layer: no admission power pass, no cap machinery (and
+        # so no demand response)
         st = sched.schedule_step(system, table, st, scen, thermal=thermal,
                                  backfills=backfills)
         return _tick(system, table, st, thermal, scen.setpoint_delta_c,
-                     scen.cells_offline)
+                     scen.cells_offline, wx=wx, ev_now=ev_now)
     grid = gsig.at_step(signals, st.step)
     cap_active = grid.cap_w * scen.cap_scale
+    if dr is not None:
+        # an active demand-response event caps below the schedule
+        cap_active = torch.minimum(cap_active, dr.cap_now_w)
     # raw IT draw after completions: the cap-aware admission baseline
     job_pw = pmodel.job_node_power_elapsed(table, st.jstate, st.progress,
                                            system.prof_dt)
     node_pw = pmodel.node_power(system, table, st.node_job, job_pw)
     st = sched.schedule_step(system, table, st, scen, thermal=thermal,
                              backfills=backfills, grid=grid,
-                             proj_pw=pmodel.system_it_power(node_pw))
+                             proj_pw=pmodel.system_it_power(node_pw), dr=dr)
     return _tick(system, table, st, thermal, scen.setpoint_delta_c,
-                 scen.cells_offline, grid, cap_active)
+                 scen.cells_offline, grid, cap_active, wx, ev_now)
 
 
 # ---------------------------------------------------------------------------
 # Full simulation.
 # ---------------------------------------------------------------------------
-def _history(system: SystemConfig, rows: list[dict]) -> T.StepRecord:
+def _history(rows: list[dict]) -> T.StepRecord:
     """Stack per-step rows into f32[S, T] (f32[S, T, H]) telemetry, adding
-    the rows that are constant without the event layer, and without the
-    grid layer when the run had no signals."""
+    the grid rows, constant when the run had no signals."""
     cols = {k: torch.stack([r[k] for r in rows], 1) for k in rows[0]}
-    z = torch.zeros_like(cols["t"])
     if "cap_w" not in cols:
-        cols.update(emissions_kg=z.clone(), energy_cost=z.clone(),
+        z = torch.zeros_like(cols["t"])
+        cols.update(emissions_kg=z, energy_cost=z.clone(),
                     cap_w=torch.full_like(z, torch.inf),
                     throttle_frac=z.clone())
-    return T.StepRecord(
-        **cols, t_wetbulb=torch.full_like(z, system.cooling.t_wetbulb_c),
-        nodes_down=z.clone(), n_killed=z)
+    return T.StepRecord(**cols)
 
 
 def _run(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
-         t0: float, t1: float, accounts, num_accounts: int, signals, device
-         ) -> Tuple[T.SimState, T.StepRecord]:
+         t0: float, t1: float, accounts, num_accounts: int, signals,
+         weather, events, device) -> Tuple[T.SimState, T.StepRecord]:
     """Scan the batched engine step from ``init_state`` over [t0, t1)."""
     dev = resolve_device(device)
     n_steps = int(round((t1 - t0) / system.dt))
     backfills = tuple(sorted(set(scen.backfill.tolist())))
     table = table.to(dev)
     scen = T.tree_map(lambda x: x.to(dev), scen)
+    S = scen.policy.shape[0]
     if signals is not None:
         signals = signals.to(dev)
-    S = scen.policy.shape[0]
-    st0 = init_state(system, table, t0, t1, accounts, num_accounts)
+    if weather is not None:
+        weather = weather.to(dev)
+        if weather.batched and weather.t_wetbulb_c.shape[0] != S:
+            raise ValueError(f"need one weather trace per scenario: "
+                             f"{weather.t_wetbulb_c.shape[0]} != {S}")
+    st0 = init_state(system, table, t0, t1, accounts, num_accounts, events)
     st = T.tree_map(lambda x: x.unsqueeze(0).repeat(S, *([1] * x.ndim)), st0)
     rows = []
     for _ in range(n_steps):
-        st, rec = engine_step(system, table, st, scen, backfills, signals)
+        st, rec = engine_step(system, table, st, scen, backfills, signals,
+                              weather, events)
         rows.append(rec)
-    return st, _history(system, rows)
+    return st, _history(rows)
 
 
 def simulate(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
              t0: float, t1: float, accounts: T.AccountStats | None = None,
              num_accounts: int = 64, signals: gsig.GridSignals | None = None,
+             weather: wsig.WeatherSignals | None = None,
+             events: ev_mod.EventConfig | None = None,
              device="cuda") -> Tuple[T.SimState, T.StepRecord]:
     """Run the twin for one scenario from ``t0`` to ``t1`` (seconds).
 
@@ -299,13 +353,19 @@ def simulate(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
       num_accounts: ledger size when ``accounts`` is None.
       signals: per-step grid signals (g CO2/kWh, $/kWh, cap W), which
         enable the grid layer; None runs without it.
+      weather: per-step ambient conditions (°C) driving the towers; None
+        takes the config's static wet-bulb.
+      events: an ``EventConfig`` enabling the failure and demand-response
+        layer, whose rates, seed and DR event are the scenario's knobs;
+        None runs without it.
       device: where to run; ``"cpu"`` only when asked for.
     Returns:
       (final SimState, StepRecord history f32[T] per field), without the
       scenario axis.
     """
     final, hist = _run(system, table, T.stack_scenarios([scen]), t0, t1,
-                       accounts, num_accounts, signals, device)
+                       accounts, num_accounts, signals, weather, events,
+                       device)
     return T.row(final, 0), T.row(hist, 0)
 
 
@@ -313,28 +373,42 @@ def simulate_static(system: SystemConfig, table: T.JobTable, policy: str,
                     backfill: str, t0: float, t1: float,
                     accounts: T.AccountStats | None = None,
                     num_accounts: int = 64,
-                    signals: gsig.GridSignals | None = None, device="cuda"):
+                    signals: gsig.GridSignals | None = None,
+                    weather: wsig.WeatherSignals | None = None,
+                    events: ev_mod.EventConfig | None = None, device="cuda"):
     """Single scenario named by policy and backfill, every other knob at
-    its neutral default. A batch of one runs the sweep's arithmetic row
-    for row, and a batch without EASY skips the reservation machinery,
-    as the reference's static fast path does."""
+    its neutral default (so ``events`` draws no failure). A batch of one
+    runs the sweep's arithmetic row for row, and a batch without EASY
+    skips the reservation machinery, as the reference's static fast path
+    does."""
     return simulate(system, table, T.Scenario.make(policy, backfill), t0, t1,
-                    accounts, num_accounts, signals, device)
+                    accounts, num_accounts, signals, weather, events, device)
 
 
 def simulate_sweep(system: SystemConfig, table: T.JobTable,
                    scens: list[T.Scenario], t0: float, t1: float,
                    accounts: T.AccountStats | None = None,
                    num_accounts: int = 64,
-                   signals: gsig.GridSignals | None = None, device="cuda"
-                   ) -> Tuple[T.SimState, T.StepRecord]:
+                   signals: gsig.GridSignals | None = None,
+                   weather=None, events: ev_mod.EventConfig | None = None,
+                   device="cuda") -> Tuple[T.SimState, T.StepRecord]:
     """What-if sweep: S scenarios advance together, one batched step at a
     time (no Python loop over scenarios). The job table, initial state and
     grid signals are shared; the scenario knobs ride the S axis, so a
     (policy x cap-level x carbon-weight) sweep reads one signal set and
     scales the cap by ``Scenario.cap_scale``.
 
+    ``weather`` is one ``WeatherSignals`` shared by every scenario or a
+    list with one trace per scenario (stacked on the S axis). ``events``
+    turns the failure layer on for the whole sweep; each row draws its
+    own failures from its ``failure_seed`` and rates.
+
     Returns (final SimState [S, ...], StepRecord [S, T, ...]).
     """
+    if isinstance(weather, (list, tuple)):
+        if len(weather) != len(scens):
+            raise ValueError(f"need one weather trace per scenario: "
+                             f"{len(weather)} != {len(scens)}")
+        weather = wsig.stack_weather(weather)
     return _run(system, table, T.stack_scenarios(list(scens)), t0, t1,
-                accounts, num_accounts, signals, device)
+                accounts, num_accounts, signals, weather, events, device)

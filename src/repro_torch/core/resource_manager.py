@@ -1,10 +1,13 @@
 """Node allocation / release (paper §3.2.3), port of
 ``repro.core.resource_manager``, batched over scenarios.
 
-Node state is one int32 tensor ``node_job[S, N]`` (occupying job id, -1
-when free). Placement is first-free by prefix-sum rank over the free
-mask, either in index order or in a caller-supplied node preference
-order (the scheduler's coolest-hall-first order on a multi-hall plant).
+Node state is one int32 tensor ``node_job[S, N]``: the occupying job id,
+-1 when free, -2 when down for repair (the event layer,
+``repro_torch.events``, parks unavailable free nodes there). Placement
+takes only -1 nodes: first-free by prefix-sum rank over the free mask,
+either in index order or in a caller-supplied node preference order (the
+scheduler's coolest-hall-first order on a multi-hall plant). Release
+frees only nodes of completed jobs and leaves -2 nodes down.
 """
 from __future__ import annotations
 
@@ -12,15 +15,16 @@ import torch
 
 
 def release_done(node_job: torch.Tensor, done_now: torch.Tensor) -> torch.Tensor:
-    """Free every node whose occupying job just completed.
-    ``node_job`` i32[S, N], ``done_now`` bool[S, J]."""
+    """Free every node whose occupying job just completed; a down (-2)
+    node stays down. ``node_job`` i32[S, N], ``done_now`` bool[S, J]."""
     freed = (node_job >= 0) & torch.gather(done_now, 1,
                                            node_job.clamp(min=0).long())
     return torch.where(freed, -1, node_job)
 
 
 def firstfree_mask(node_job: torch.Tensor, need: torch.Tensor) -> torch.Tensor:
-    """bool[S, N] selecting the first ``need[s]`` free nodes of each row."""
+    """bool[S, N] selecting the first ``need[s]`` free nodes of each row
+    (a down -2 node is not free)."""
     free = node_job == -1
     rank = torch.cumsum(free, 1, dtype=torch.int32)
     return free & (rank <= need[:, None])

@@ -18,8 +18,10 @@ first-fit / EASY semantics, batched over scenarios.
 * Cap-aware admission (grid path): with a ``GridNow`` the loop carries
   each scenario's projected IT power and starts a job only if its
   estimated added draw keeps the projection under the active cap.
-  ``grid is None`` (no signals) skips that machinery entirely. Demand
-  response belongs to the events slice.
+  ``grid is None`` (no signals) skips that machinery entirely. A
+  demand-response event (``repro_torch.events.DrNow``) lowers the cap
+  while in force, and during its notice window a job that would run into
+  it must also fit under the announced cap.
 """
 from __future__ import annotations
 
@@ -224,7 +226,8 @@ def schedule_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
                   scen: T.Scenario, thermal: cmodel.ThermalNow | None = None,
                   backfills: tuple[int, ...] | None = None,
                   grid: gsig.GridNow | None = None,
-                  proj_pw: torch.Tensor | None = None) -> T.SimState:
+                  proj_pw: torch.Tensor | None = None,
+                  dr=None) -> T.SimState:
     """One call of ``schedule`` (paper Algorithm step 3): reorder each
     scenario's queue by its policy and admit jobs under its backfill rule.
 
@@ -236,6 +239,13 @@ def schedule_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
     halts admission under BF_NONE and BF_EASY (backfill would eat the
     headroom it waits for); first-fit stays greedy. ``grid is None``
     skips the cap machinery entirely.
+
+    Demand response (``dr``, a ``repro_torch.events.DrNow`` of f32[S]
+    fields, grid path only): an event in force lowers the cap to
+    ``dr.cap_now_w``; during the notice window a job whose requested
+    limit runs past ``dr.start_s`` is admitted only if the projection
+    also fits under the announced ``dr.cap_w``, so the scheduler
+    pre-positions for the cap instead of running into it.
 
     Thermal admission throttling: when a hall's cooling loop has lost the
     supply setpoint by more than ``CoolingConfig.t_supply_margin_c``,
@@ -284,7 +294,14 @@ def schedule_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
         est_add_pw = torch.clamp(
             table.power_prof[:, 0] - system.power.idle_node_w, min=0.0) * \
             table.nodes.to(torch.float32)
-        cap = (proj_pw, est_add_pw[order_k], grid.cap_w * scen.cap_scale)
+        cap_active = grid.cap_w * scen.cap_scale
+        runs_into = dr_cap = None
+        if dr is not None:
+            cap_active = torch.minimum(cap_active, dr.cap_now_w)
+            runs_into = dr.in_notice[:, None] & \
+                (t + table.limit[order_k] > dr.start_s[:, None])
+            dr_cap = dr.cap_w
+        cap = (proj_pw, est_add_pw[order_k], cap_active, runs_into, dr_cap)
     placed, node_job, free_count = _admit(
         st.node_job, st.free_count, free_ok, order_k, valid_k, need_k,
         t + table.limit[order_k], scen.backfill, is_replay, thermal_ok,
@@ -311,7 +328,9 @@ def _admit(node_job, free_count, free_ok, order_k, valid_k, need_k,
     EASY finish-before-shadow test); ``order_nodes``/``node_ok`` are None
     on a flat plant (index-order placement, all-or-nothing thermal gate).
     ``cap`` is None without grid signals, else (projected IT power f32[S],
-    estimated added power of each queued job f32[S, K], active cap f32[S]).
+    estimated added power of each queued job f32[S, K], active cap f32[S],
+    and with a demand-response event the jobs that would run into it
+    bool[S, K] and its announced cap f32[S], else None and None).
     """
     S, K = valid_k.shape
     hall_aware = order_nodes is not None
@@ -324,7 +343,7 @@ def _admit(node_job, free_count, free_ok, order_k, valid_k, need_k,
     order_k32 = order_k.to(torch.int32)
     placed = torch.zeros_like(valid_k)
     if cap is not None:
-        proj, est_add_k, cap_active = cap
+        proj, est_add_k, cap_active, runs_into, dr_cap = cap
     for i in range(K):
         need, valid = need_k[:, i], valid_k[:, i]
         # deterministic first-free placement (coolest hall first on a
@@ -357,7 +376,12 @@ def _admit(node_job, free_count, free_ok, order_k, valid_k, need_k,
         if cap is None:
             ok = th_ok
         else:
-            cap_ok = proj + est_add_k[:, i] <= cap_active
+            after = proj + est_add_k[:, i]
+            cap_ok = after <= cap_active
+            if runs_into is not None:
+                # notice window: a job still running when the announced
+                # cap engages must fit under that cap too
+                cap_ok = cap_ok & (~runs_into[:, i] | (after <= dr_cap))
             ok = cap_ok & th_ok
         # replay ignores backfill, the cap and the thermal gate
         place = valid & fits & (is_replay | (can_bf & ok))

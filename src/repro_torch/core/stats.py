@@ -35,8 +35,10 @@ def summarize(system: SystemConfig, table: T.JobTable, final: T.SimState,
       hist: its per-step telemetry (powers in W, temperatures in °C).
     Returns:
       Flat dict of floats — scheduler metrics (s), energy (MWh), power
-      (MW), PUE, emissions (kg), cost ($), and cooling-loop telemetry
-      (°C / MWh).
+      (MW), PUE, emissions (kg), cost ($), cooling-loop telemetry
+      (°C / MWh), and with the event layer the ride-through scores (jobs
+      killed and requeued, energy not served in MWh, node downtime in h,
+      recovery time in s).
     """
     done = _np(final.jstate == T.DONE)
     start = _np(final.start)
@@ -123,6 +125,26 @@ def summarize(system: SystemConfig, table: T.JobTable, final: T.SimState,
         "thermal_throttled_steps": float(
             (_np(hist.thermal_throttled, np.float64) > 0.5).sum()),
     }
+    # ride-through scoring, when the event layer ran
+    ev = final.events
+    if ev is not None:
+        out["ride_jobs_killed"] = float(_np(ev.jobs_killed))
+        out["ride_jobs_requeued"] = float(_np(ev.jobs_requeued))
+        out["ride_energy_unserved_mwh"] = float(_np(ev.energy_lost_j) / 3.6e9)
+        out["ride_node_downtime_h"] = float(_np(ev.node_downtime_s) / 3600.0)
+        # recovery time: from the last step with nodes down to the first
+        # later step where the queue has drained back to its depth when
+        # the first failure hit (cut at the horizon; 0 = no failures)
+        nd = _np(hist.nodes_down, np.float64)
+        nq = _np(hist.n_queued, np.float64)
+        downs = np.nonzero(nd > 0.0)[0]
+        if downs.size == 0:
+            out["ride_recovery_s"] = 0.0
+        else:
+            first, last = int(downs[0]), int(downs[-1])
+            later = np.nonzero(nq[last:] <= nq[first])[0]
+            rec = int(later[0]) if later.size else nd.shape[-1] - last
+            out["ride_recovery_s"] = float(rec * system.dt)
     # per-hall rows (FacilityTopology): IT-load share, basin peak, cells.
     # A flat plant contributes one hall with share 1.0.
     p_hall = _np(hist.power_it_hall, np.float64)

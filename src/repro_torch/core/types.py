@@ -100,8 +100,11 @@ def _tensor(a, device) -> torch.Tensor:
 def _from_arrays(cls, m: Mapping, device, batch: bool):
     kw = {}
     for f in dataclasses.fields(cls):
-        v = m[f.name]
-        if isinstance(v, Mapping):
+        optional = f.default is not dataclasses.MISSING
+        v = m.get(f.name) if optional else m[f.name]
+        if v is None:                 # an optional layer that is off
+            pass
+        elif isinstance(v, Mapping):
             v = _from_arrays(_NESTED[f.name], v, device, batch)
         else:
             v = _tensor(v, device)
@@ -206,12 +209,29 @@ class CoolingState:
 
 
 @dataclass
+class EventState:
+    """Stochastic failure-process state (``repro_torch.events``), per
+    scenario: present only when the event layer runs (``events=`` on the
+    entry points). ``*_down_until`` hold the sim time (s) each entity's
+    repair completes: it is down while ``t < down_until``, and since
+    ``down_until`` never shrinks it cannot come back before its repair.
+    N = nodes, G = CDU groups, C = installed tower cells."""
+    node_down_until: torch.Tensor   # f32[S, N] repair-complete time per node
+    group_down_until: torch.Tensor  # f32[S, G] per CDU group
+    cell_down_until: torch.Tensor   # f32[S, C] per tower cell
+    jobs_killed: torch.Tensor       # f32[S] jobs killed by failures
+    jobs_requeued: torch.Tensor     # f32[S] killed jobs returned to the queue
+    energy_lost_j: torch.Tensor     # f32[S] energy of killed jobs (not served)
+    node_downtime_s: torch.Tensor   # f32[S] integral of down nodes x dt
+
+
+@dataclass
 class SimState:
     """Full engine state, batched over scenarios (leading axis S).
 
     ``init_state`` returns it without the S axis, as the JAX package
-    does; the runners repeat it once per scenario. The event layer
-    (``repro.events``) is not ported yet: there is no ``events`` field.
+    does; the runners repeat it once per scenario. ``events`` is None
+    unless the event layer runs.
     """
     t: torch.Tensor          # f32[S] current simulation time (s)
     step: torch.Tensor       # i32[S] engine step index
@@ -220,7 +240,7 @@ class SimState:
     end: torch.Tensor        # f32[S, J] realized end time (or +inf)
     progress: torch.Tensor   # f32[S, J] work-time since start (s)
     jenergy: torch.Tensor    # f32[S, J] accumulated job energy (J)
-    node_job: torch.Tensor   # i32[S, N] job id occupying each node, -1 when free
+    node_job: torch.Tensor   # i32[S, N] job id on each node, -1 free, -2 down
     free_count: torch.Tensor  # i32[S] number of free nodes
     accounts: AccountStats
     cooling: CoolingState
@@ -232,18 +252,20 @@ class SimState:
     energy_cost: torch.Tensor    # f32[S] grid layer: stays 0 without signals
     energy_cooling: torch.Tensor  # f32[S] integral of cooling parasitics (J)
     heat_reuse_j: torch.Tensor   # f32[S] integral of exported (reused) heat (J)
+    events: EventState | None = None  # the event layer's state, when on
 
     @staticmethod
     def from_arrays(m: Mapping, device="cpu") -> "SimState":
         """Build from the JAX ``SimState``'s leaves (numpy, by field name;
-        ``accounts`` and ``cooling`` as nested mappings). An unbatched
-        JAX state (``t`` of rank 0) gains a scenario axis of size 1."""
-        _refuse(m, "SimState", absent=("events",))
+        ``accounts``, ``cooling`` and ``events`` as nested mappings,
+        ``events`` None when the layer is off). An unbatched JAX state
+        (``t`` of rank 0) gains a scenario axis of size 1."""
         return _from_arrays(SimState, m, device,
                             batch=np.ndim(m["t"]) == 0)
 
 
-_NESTED = {"accounts": AccountStats, "cooling": CoolingState}
+_NESTED = {"accounts": AccountStats, "cooling": CoolingState,
+           "events": EventState}
 
 
 @dataclass
@@ -277,28 +299,27 @@ class StepRecord:
     t_supply_max_hall: torch.Tensor  # [H] hottest CDU supply per hall (°C)
     t_wetbulb_hall: torch.Tensor     # [H] per-hall ambient wet-bulb (°C)
     cells_online: torch.Tensor       # [H] tower cells available per hall
-    nodes_down: torch.Tensor         # event layer: 0 when off
-    n_killed: torch.Tensor           # event layer: 0 when off
+    nodes_down: torch.Tensor         # nodes unavailable (0 without events)
+    n_killed: torch.Tensor           # jobs killed by failures (0 without)
     overheat_hall: torch.Tensor      # [H] per-hall setpoint-lost flag
 
 
 # ---------------------------------------------------------------------------
 # Per-run scenario parameters (a batch of them rides the S axis).
 # ---------------------------------------------------------------------------
-# knobs of layers this slice does not run, at their neutral values
-_UNPORTED_KNOBS = {
-    "alpha": 0.0, "node_fail_rate": 0.0,
-    "cdu_fail_rate": 0.0, "cell_fail_rate": 0.0, "failure_corr": 0.0,
-    "dr_announce_s": -1.0,
-}
+# knobs of layers the port does not run yet, at their neutral values
+_UNPORTED_KNOBS = {"alpha": 0.0}
 
 
 @dataclass
 class Scenario:
     """What-if knobs of one scenario (0-d tensors) or of a batch (leading
     axis S, see ``stack_scenarios``). Every knob after policy/backfill has
-    a neutral default. ML alpha and the failure and demand-response knobs
-    of the JAX ``Scenario`` belong to layers that later slices port."""
+    a neutral default. The failure knobs act only when the engine runs
+    with ``events=EventConfig(...)``: hazards in 1/s (0 = never fails),
+    mean repair ``repair_s``; the demand-response event is off while
+    ``dr_announce_s < 0`` or ``dr_cap_w <= 0``. ML alpha belongs to a
+    later slice of the port."""
     policy: torch.Tensor            # i32 POLICY_*
     backfill: torch.Tensor          # i32 BF_*
     acct_weight: torch.Tensor       # f32 weight on account-derived keys
@@ -308,13 +329,28 @@ class Scenario:
     thermal_weight: torch.Tensor    # f32 POLICY_THERMAL strength
     setpoint_delta_c: torch.Tensor  # f32 offset on the supply setpoint (°C)
     cells_offline: torch.Tensor     # f32 (or f32[H]) tower cells offline
+    failure_seed: torch.Tensor      # f32 seed of the failure draws
+    node_fail_rate: torch.Tensor    # f32 per-node failure hazard (1/s)
+    cdu_fail_rate: torch.Tensor     # f32 per-CDU-group hazard (1/s)
+    cell_fail_rate: torch.Tensor    # f32 per-tower-cell hazard (1/s)
+    failure_corr: torch.Tensor      # f32 hall-wide CDU outage scale in [0, 1]
+    repair_s: torch.Tensor          # f32 mean repair time (s)
+    dr_announce_s: torch.Tensor     # f32 DR announcement time (s; < 0 off)
+    dr_notice_s: torch.Tensor       # f32 notice window before the cap (s)
+    dr_duration_s: torch.Tensor     # f32 how long the DR cap holds (s)
+    dr_cap_w: torch.Tensor          # f32 DR cap level (W; <= 0 off)
 
     @staticmethod
     def make(policy: str | int, backfill: str | int = "none",
              acct_weight: float = 1.0, carbon_weight: float = 1.0,
              price_weight: float = 1.0, cap_scale: float = 1.0,
              thermal_weight: float = 1.0, setpoint_delta_c: float = 0.0,
-             cells_offline=0.0) -> "Scenario":
+             cells_offline=0.0, failure_seed: float = 0.0,
+             node_fail_rate: float = 0.0, cdu_fail_rate: float = 0.0,
+             cell_fail_rate: float = 0.0, failure_corr: float = 0.0,
+             repair_s: float = 3600.0, dr_announce_s: float = -1.0,
+             dr_notice_s: float = 0.0, dr_duration_s: float = 0.0,
+             dr_cap_w: float = 0.0) -> "Scenario":
         p = POLICY_NAMES[policy] if isinstance(policy, str) else policy
         b = BACKFILL_NAMES[backfill] if isinstance(backfill, str) else backfill
         f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
@@ -325,14 +361,19 @@ class Scenario:
             price_weight=f32(price_weight), cap_scale=f32(cap_scale),
             thermal_weight=f32(thermal_weight),
             setpoint_delta_c=f32(setpoint_delta_c),
-            cells_offline=f32(cells_offline))
+            cells_offline=f32(cells_offline),
+            failure_seed=f32(failure_seed), node_fail_rate=f32(node_fail_rate),
+            cdu_fail_rate=f32(cdu_fail_rate),
+            cell_fail_rate=f32(cell_fail_rate),
+            failure_corr=f32(failure_corr), repair_s=f32(repair_s),
+            dr_announce_s=f32(dr_announce_s), dr_notice_s=f32(dr_notice_s),
+            dr_duration_s=f32(dr_duration_s), dr_cap_w=f32(dr_cap_w))
 
     @staticmethod
     def from_arrays(m: Mapping, device="cpu") -> "Scenario":
         """Build from the JAX ``Scenario``'s leaves (numpy, by field name),
-        one scenario or a stacked batch. Knobs of layers this slice does
-        not run (ML alpha, failures, demand response) must sit at their
-        neutral values."""
+        one scenario or a stacked batch. ML alpha, which the port does not
+        run yet, must sit at its neutral value."""
         _refuse(m, "Scenario", neutral=_UNPORTED_KNOBS)
         return _from_arrays(Scenario, m, device, batch=False)
 

@@ -68,6 +68,48 @@ def assert_exact(want, got, what=""):
         f"{what}: differs at {np.argwhere(want != got)[:5].tolist()}"
 
 
+def assert_runs_match(want, got, rtol=1e-4, what="", atol=None):
+    """A JAX engine run (final state, history) against the port's: the
+    schedule (``jstate``, ``start``, ``end``, ``node_job``, ``free_count``)
+    exactly, every telemetry row and float leaf of the final state
+    (``events`` included) at ``rtol``, the reference's engine tolerance.
+    ``throttle_frac`` (1 - c, c near 1) also gets atol 1e-6: the port's
+    cap factor is rounded down. ``atol`` adds absolute tolerances to
+    telemetry rows by name."""
+    atol = dict({"throttle_frac": 1e-6}, **(atol or {}))
+    (wf, wh), (gf, gh) = want, got
+    for name in ("jstate", "start", "end", "node_job", "free_count"):
+        assert_exact(getattr(wf, name), getattr(gf, name), f"{what} {name}")
+    for f in dataclasses.fields(gh):
+        w, g = np.asarray(getattr(wh, f.name)), as_np(getattr(gh, f.name))
+        assert w.shape == g.shape and w.dtype == g.dtype, f.name
+        np.testing.assert_allclose(g, w, rtol=rtol,
+                                   atol=atol.get(f.name, 0.0),
+                                   err_msg=f"{what} {f.name}")
+
+    def leaves_match(w_map, g_obj, prefix):
+        for name, w in w_map.items():
+            g = getattr(g_obj, name)
+            if isinstance(w, dict):
+                leaves_match(w, g, f"{prefix}{name}.")
+            elif w is None:
+                assert g is None, f"{what} {prefix}{name}"
+            elif np.issubdtype(w.dtype, np.floating):
+                np.testing.assert_allclose(as_np(g), w, rtol=rtol,
+                                           err_msg=f"{what} {prefix}{name}")
+    leaves_match(leaves(wf), gf, "")
+
+
+def assert_threefry_partitionable():
+    """The port transcribes jax's partitionable threefry; comparing its
+    failure draws with JAX's needs that form on (jax 0.9's default). It
+    is checked, never set: no global switch."""
+    import jax
+    assert jax.config.jax_threefry_partitionable, \
+        "jax_threefry_partitionable is off: the port transcribes the " \
+        "partitionable threefry (split and random_bits differ without it)"
+
+
 def four_hall(system):
     """``system`` with a 4-hall plant of 4 CDU groups and 4 tower cells,
     sized tight (small towers, a low return limit and supply margin) so

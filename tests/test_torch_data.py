@@ -87,9 +87,9 @@ def test_from_arrays_round_trips_jax_leaves():
 
 
 def test_scenario_from_arrays_and_unported_knobs():
-    """The grid knobs (carbon and price weights, cap scale) are carried;
-    the knobs of layers not ported yet (ML alpha, failures, demand
-    response) still refuse a non-neutral value."""
+    """The grid knobs (carbon and price weights, cap scale) and the
+    failure and demand-response knobs are carried; the knob of the layer
+    not ported yet (ML alpha) still refuses a non-neutral value."""
     from repro.core import types as JT
     kw = [dict(thermal_weight=2.0, carbon_weight=3.0, cap_scale=0.7),
           dict(setpoint_delta_c=-1.5, price_weight=0.25, cap_scale=0.85)]
@@ -105,11 +105,13 @@ def test_scenario_from_arrays_and_unported_knobs():
     assert got.cap_scale.tolist() == [np.float32(0.7), np.float32(0.85)]
     assert got.carbon_weight.tolist() == [3.0, 1.0]
     assert got.price_weight.tolist() == [1.0, 0.25]
-    for knob, value in [("alpha", 0.5), ("node_fail_rate", 1e-6),
-                        ("cdu_fail_rate", 1e-6), ("cell_fail_rate", 1e-6),
-                        ("failure_corr", 0.5), ("dr_announce_s", 600.0)]:
-        with pytest.raises(NotImplementedError, match=knob):
-            TT.Scenario.from_arrays(leaves(JT.Scenario.make(
-                "fcfs", **{knob: value})))
+    with pytest.raises(NotImplementedError, match="alpha"):
+        TT.Scenario.from_arrays(leaves(JT.Scenario.make("fcfs", alpha=0.5)))
+    for knob, value in [("node_fail_rate", 1e-6), ("cdu_fail_rate", 1e-6),
+                        ("cell_fail_rate", 1e-6), ("failure_corr", 0.5),
+                        ("dr_announce_s", 600.0)]:
+        got = TT.Scenario.from_arrays(leaves(JT.Scenario.make(
+            "fcfs", **{knob: value})))
+        assert getattr(got, knob) == np.float32(value), knob
     with pytest.raises(NotImplementedError, match="ml_basis"):
         TT.JobTable.from_arrays({"ml_basis": np.zeros((2, 2))})
