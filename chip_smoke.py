@@ -21,6 +21,15 @@ through their entry points at full width and checks what comes out:
   demand-response cap step, one group-power launch a step; and the same
   scenarios for 1 h without signals or DR, one fused cooling launch a
   step;
+* ``frontier-session-2h``, the what-if session (``repro_torch.serve``):
+  a ``TwinSession`` on ``frontier-grid-6h``'s machine, backlog and
+  signals with the event layer at zero rates, in intervals of 60 steps;
+  the root advances alone to 1 h, is forked there into a neutral, a
+  setpoint, a demand-response and a failure branch, and all five advance
+  as one batch to 2 h, one group-power launch a batched step. Segment
+  resume, the neutral fork, coalescing and the snapshot codec are held
+  bit for bit (against one uninterrupted scan, the parent, the branch
+  advanced alone, a resume from a decoded snapshot);
 * ``fugaku-sweep-2h``, the no-grid sweep at Fugaku's full width (158,976
   nodes, 32 CDU groups, 4,000 jobs, 120 steps of 60 s, 8 scenarios),
   whose fused cooling launches give each group's span of 4,968 nodes
@@ -32,7 +41,7 @@ through their entry points at full width and checks what comes out:
   the bf16 prefill's logits held to the float32 prefill's;
 
 and a small card-against-CPU check of each path (with weather and
-failures on, also of the event layer's draws). Before the paths, each
+failures on, also of the event layer's draws; a small session too). Before the paths, each
 kernel is held to its plain version at the paths' shapes and ragged ones
 and timed (CUDA graph, eager, host enqueue, the launch floor; for the
 power-topology kernels also at Fugaku's width), and the power-topology
@@ -55,6 +64,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -93,6 +103,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models.zoo import get_api  # noqa: E402
+from repro_torch.serve import TwinSession  # noqa: E402
+from repro_torch.serve import snapshot as snap  # noqa: E402
 from repro_torch.systems.config import FacilityTopology, get_system  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -132,6 +144,12 @@ EVENT_FAILURES = [
 DR_AT = dict(dr_announce_s=3600.0, dr_notice_s=1800.0, dr_duration_s=3600.0)
 DR_CAP_FRAC = 0.6
 EVENTS_NOGRID_T1 = 3600.0    # the no-grid events run: 240 steps
+# frontier-session-2h: a what-if session on frontier-grid-6h's machine,
+# backlog and signals, in 15 min intervals; the root runs alone to 1 h,
+# where four forks branch off, then all five advance together to 2 h
+SESSION_INTERVAL = 60
+SESSION_T1 = 2 * 3600.0
+SESSION_FORK_AT = 4          # intervals: step 240, t = 1 h
 
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -883,6 +901,241 @@ def events_nogrid_path(card):
         system, table, scens[0], 0.0, EVENTS_NOGRID_T1, weather=weather[0],
         events=EventConfig()))
 
+def cols_equal(a, b):
+    """Two fetches' columns, bit for bit (NaN equal to NaN)."""
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+
+def digest_of(carry):
+    return snap.carry_digest(snap.encode_carry(carry, binary=True))
+
+def session_path(card):
+    """frontier-session-2h: the root alone for 4 intervals, 4 forks at
+    1 h, then 5 branches coalesced for 4 intervals; one group_power
+    launch a dispatched step (a batch of 5 is one dispatch)."""
+    system, table, sig, _ = grid_case()
+    n = SESSION_INTERVAL
+    fork_step = SESSION_FORK_AT * n
+    t_fork = fork_step * system.dt
+    peak_it = system.n_nodes * system.power.peak_node_w
+    dr = dict(DR_AT, dr_announce_s=t_fork, dr_cap_w=DR_CAP_FRAC * peak_it)
+    deltas = {"neutral": {}, "setpoint +2 C": {"setpoint_delta_c": 2.0},
+              "DR": dr, "failures": dict(EVENT_FAILURES[1])}
+    scen = T.Scenario.make(*GRID_SWEEP[0][:2])
+    horizon = int(round(SESSION_T1 / system.dt))
+    print(f"session path frontier-session-2h: N={system.n_nodes} "
+          f"J={table.num_jobs} horizon={horizon} steps, interval {n}, "
+          f"fork at step {fork_step}; forks {deltas}")
+    timing = {}
+
+    def drive():
+        t = time.perf_counter()
+        sess = TwinSession(system, table, scen, 0.0, SESSION_T1, n,
+                           signals=sig, events=EventConfig())
+        sess.advance_many({0: SESSION_FORK_AT})
+        torch.cuda.synchronize()
+        timing["root"] = time.perf_counter() - t
+        # the root's live carry on the card, through the codec
+        card_carry = sess.branches[0].carry
+        for binary in (False, True):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            payload = snap.encode_carry(card_carry, binary=binary)
+            timing[("encode", binary)] = time.perf_counter() - t
+            if not binary:
+                text = json.dumps(payload)
+                timing["json_bytes"] = len(text)
+                payload = json.loads(text)
+            t = time.perf_counter()
+            decoded = snap.decode_carry(payload, sess.carry_template)
+            timing[("decode", binary)] = time.perf_counter() - t
+            timing[("payload", binary)] = payload
+        timing["decoded"] = decoded
+        t = time.perf_counter()
+        ids = {name: sess.fork(0, d).branch_id for name, d in deltas.items()}
+        torch.cuda.synchronize()
+        timing["forks"] = time.perf_counter() - t
+        t = time.perf_counter()
+        sess.advance_many({b: SESSION_FORK_AT for b in sess.branches})
+        torch.cuda.synchronize()
+        timing["coalesced"] = time.perf_counter() - t
+        return sess, ids
+
+    (sess, ids), wall, launches = run_counted(drive)
+    dispatched = 2 * SESSION_FORK_AT * n
+    print(f"[{card}] session: {wall!r} s in all, launches {launches} for "
+          f"{dispatched} dispatched steps ({SESSION_FORK_AT * n} of the root "
+          f"alone, {SESSION_FORK_AT * n} of 5 branches coalesced)")
+    if launches["group_power"] != dispatched or launches["fused_cooling"]:
+        raise SystemExit(f"session of {dispatched} dispatched steps "
+                         f"launched {launches}")
+    coalesced_bs = len(sess.branches) * SESSION_FORK_AT * n / \
+        timing["coalesced"]
+
+    # the root's 8 segments against one uninterrupted scan on the card
+    final, hist = eng.simulate(system, table, scen, 0.0, SESSION_T1,
+                               signals=sig, events=EventConfig())
+    root = sess.branches[0]
+    for name in vars(hist):
+        got = np.concatenate([getattr(h, name) for h in root.history])
+        if not np.array_equal(got, getattr(hist, name).cpu().numpy(),
+                              equal_nan=True):
+            raise SystemExit(f"session: the root's segments differ from one "
+                             f"scan in {name}")
+    if digest_of(root.checkpoints[horizon]) != digest_of(final):
+        raise SystemExit("session: the root's final carry differs from one "
+                         "scan's")
+    print(f"session: the root's {2 * SESSION_FORK_AT} segments are "
+          f"bit-identical to one {horizon}-step simulate on the card "
+          f"(every telemetry row, the final carry's digest)")
+
+    # the neutral fork is its parent
+    neutral = sess.branches[ids["neutral"]]
+    if not cols_equal(sess.fetch(0, start=fork_step, binary=True)["cols"],
+                      sess.fetch(neutral.branch_id, binary=True)["cols"]):
+        raise SystemExit("session: the neutral fork's rows differ from the "
+                         "root's")
+    for step in neutral.checkpoints:
+        if sess.snapshot(0, at_step=step)["digest"] != \
+                sess.snapshot(neutral.branch_id, at_step=step)["digest"]:
+            raise SystemExit(f"session: the neutral fork's checkpoint at "
+                             f"step {step} differs from the root's")
+
+    # the DR fork advanced alone from the same checkpoint
+    alone = sess.fork(0, dr, at_step=fork_step).branch_id
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sess.advance_many({alone: SESSION_FORK_AT})
+    torch.cuda.synchronize()
+    serial_bs = SESSION_FORK_AT * n / (time.perf_counter() - t)
+    dr_id = ids["DR"]
+    if not cols_equal(sess.fetch(alone, binary=True)["cols"],
+                      sess.fetch(dr_id, binary=True)["cols"]):
+        raise SystemExit("session: the DR fork coalesced and alone differ")
+    for step in sess.branches[dr_id].checkpoints:
+        if sess.snapshot(alone, at_step=step)["digest"] != \
+                sess.snapshot(dr_id, at_step=step)["digest"]:
+            raise SystemExit(f"session: the DR fork's checkpoint at step "
+                             f"{step} differs coalesced and alone")
+
+    # a snapshot of the card's carry, decoded, resumes bit for bit
+    for binary in (False, True):
+        payload = timing[("payload", binary)]
+        if snap.carry_digest(payload) != digest_of(
+                root.checkpoints[fork_step]):
+            raise SystemExit("session: the card carry's snapshot differs "
+                             "from its host checkpoint")
+    resumed, rhist = eng.simulate_segment(system, table, timing["decoded"],
+                                          scen, n, sig,
+                                          events=EventConfig())
+    same = all(np.array_equal(a.cpu().numpy(), getattr(
+        root.history[SESSION_FORK_AT], k), equal_nan=True)
+        for k, a in vars(rhist).items())
+    if not same or digest_of(resumed) != digest_of(
+            root.checkpoints[fork_step + n]):
+        raise SystemExit("session: a resume from a decoded snapshot differs "
+                         "from the root")
+
+    # the DR cap, and the failure fork's kills
+    cols = sess.fetch(dr_id, binary=True)["cols"]
+    start = dr["dr_announce_s"] + dr["dr_notice_s"]
+    t = cols["t"]
+    active = (t >= start) & (t < start + dr["dr_duration_s"])
+    steps = cols["step"]
+    want_cap = np.minimum(sig.cap_w.cpu().numpy()[steps],
+                          np.where(active, np.float32(dr["dr_cap_w"]),
+                                   np.inf))
+    if not np.array_equal(cols["cap_w"], want_cap.astype(np.float64)):
+        raise SystemExit("session: the DR fork's recorded cap is not "
+                         "min(signal cap, DR cap)")
+    over = cols["power_it"] - cols["cap_w"]
+    if not (over <= 0.0).all():
+        raise SystemExit(f"session: the DR fork exceeds its cap by "
+                         f"{over.max()!r} W")
+    killed = float(sess.fetch(ids["failures"], binary=True)["cols"]
+                   ["n_killed"].sum())
+    if killed < 1:
+        raise SystemExit("session: the failure fork killed no job")
+    throttled = int((cols["throttle_frac"][active] > 0).sum())
+    print(f"session: neutral fork = root row for row and at every "
+          f"checkpoint; the DR fork alone = coalesced (rows, digests); a "
+          f"snapshot of the card's carry resumes bit for bit; DR cap held "
+          f"(largest power_it - cap_w {float(over.max())!r} W; "
+          f"{int(active.sum())} steps under the DR cap, {throttled} of them "
+          f"throttled); the failure fork killed {killed!r} jobs")
+    for name, b in ids.items():
+        c = sess.fetch(b, binary=True)["cols"]
+        print(f"  [{card}] {name}: peak_it_mw="
+              f"{float(c['power_it'].max()) / 1e6!r} "
+              f"avg_pue={float(c['pue'].mean())!r} t_tower_return_max_c="
+              f"{float(c['t_tower_return'].max())!r} nodes_down_max="
+              f"{float(c['nodes_down'].max())!r} "
+              f"n_killed={float(c['n_killed'].sum())!r}")
+
+    ck = root.checkpoints[fork_step]
+    ck_bytes = sum(a.nbytes for a in
+                   snap.encode_carry(ck, binary=True)["leaves"].values())
+    hist_bytes = sum(a.nbytes for a in vars(root.history[0]).values())
+    print(f"[{card}] session rates: {len(deltas) / timing['forks']!r} forks/s; "
+          f"branch-steps/s coalesced {coalesced_bs!r} (5 branches) against "
+          f"serial {serial_bs!r} (one branch alone) = "
+          f"{coalesced_bs / serial_bs!r}x; root alone "
+          f"{SESSION_FORK_AT * n / timing['root']!r} steps/s")
+    print(f"[{card}] snapshot at Frontier's width: {timing['json_bytes']} "
+          f"bytes base64 JSON, {ck_bytes} bytes of raw arrays; encode "
+          f"{timing[('encode', False)] * 1e3!r} ms (JSON) / "
+          f"{timing[('encode', True)] * 1e3!r} ms (binary) from the card, "
+          f"decode {timing[('decode', False)] * 1e3!r} / "
+          f"{timing[('decode', True)] * 1e3!r} ms; host bytes per branch "
+          f"per interval: checkpoint {ck_bytes} + history {hist_bytes}")
+    return launches
+
+def small_session_reference(card):
+    """A small session tree on the card and on the CPU (4-hall plant, no
+    signals, so the fused_cooling kernel): schedules exact, floats 1e-4."""
+    system, table = small_case()
+    n = 30
+
+    def tree(device):
+        sess = TwinSession(system, table, T.Scenario.make("fcfs", "first-fit"),
+                           0.0, 2 * 3600.0, n, num_accounts=8, device=device)
+        sess.advance_many({0: 2})
+        for d in ({}, {"setpoint_delta_c": 2.0},
+                  {"backfill": "easy", "cells_offline": 1.0}):
+            sess.fork(0, d)
+        sess.advance_many({b: 2 for b in sess.branches})
+        return sess
+
+    cpu = tree("cpu")
+    gpu, _, launches = run_counted(lambda: tree("cuda"))
+    if launches["fused_cooling"] != 4 * n or launches["group_power"]:
+        raise SystemExit(f"small session reference launched {launches}")
+    schedule = ("jstate", "start", "end", "node_job", "free_count", "step")
+    for b in cpu.branches:
+        for k, v in cpu.fetch(b, binary=True)["cols"].items():
+            np.testing.assert_allclose(gpu.fetch(b, binary=True)["cols"][k],
+                                       v, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"small session {b} {k}")
+        want = snap.encode_carry(cpu.branches[b].checkpoints[cpu.branches[b]
+                                                              .step],
+                                 binary=True)["leaves"]
+        got = snap.encode_carry(gpu.branches[b].checkpoints[gpu.branches[b]
+                                                             .step],
+                                binary=True)["leaves"]
+        for path, w in want.items():
+            if path in schedule:
+                if not np.array_equal(got[path], w):
+                    raise SystemExit(f"small session reference: branch {b} "
+                                     f"{path} differs on the card")
+            else:
+                np.testing.assert_allclose(got[path], w, rtol=1e-4,
+                                           atol=1e-4,
+                                           err_msg=f"small session {b} {path}")
+    print(f"[{card}] small session reference (marconi100 x64, 4 halls, 4 "
+          f"branches, 120 dispatched steps, {launches['fused_cooling']} "
+          f"fused_cooling launches): card matches the CPU, schedules exact, "
+          f"rows and checkpoints within 1e-4")
+
 def small_case():
     system = build_system("marconi100", 64, 4)
     js = generate(system, WorkloadSpec(n_jobs=64, duration_s=4 * 3600.0,
@@ -1456,6 +1709,8 @@ def main():
     elapsed("frontier-events-6h")
     events_nogrid_path(card)
     elapsed("frontier-events no-grid 1 h")
+    session = session_path(card)
+    elapsed("frontier-session-2h")
     fugaku_path(card)
     elapsed("fugaku-sweep-2h")
     serve_path(card, lm)
@@ -1463,7 +1718,10 @@ def main():
     small_reference()
     small_grid_reference()
     small_events_reference(card)
+    small_session_reference(card)
     small_lm_reference()
+    print(f"session launches: group_power {session['group_power']}, "
+          f"fused_cooling {session['fused_cooling']}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [fused, group, *lm]}))

@@ -28,9 +28,15 @@ its state in ``SimState.events`` and draws each scenario's failures from
 that scenario's seed; demand response needs grid signals (neutral ones
 serve when there is no grid trace).
 
-Entry points (``simulate``, ``simulate_static``, ``simulate_sweep``) run
-on ``device="cuda"`` unless the caller passes ``device="cpu"``; without a
-card a CUDA request raises.
+Segments (``simulate_segment``, ``simulate_segment_sweep``) resume from
+any returned state: chained, they equal one uninterrupted scan bit for
+bit, and a batch of branches at different steps equals each branch run
+alone (``repro_torch.serve`` builds its sessions on them). The port runs
+eagerly, so there is no compiled runner to cache.
+
+Entry points (``simulate``, ``simulate_static``, ``simulate_sweep`` and
+the segment functions) run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; without a card a CUDA request raises.
 """
 from __future__ import annotations
 
@@ -309,12 +315,21 @@ def _history(rows: list[dict]) -> T.StepRecord:
     return T.StepRecord(**cols)
 
 
-def _run(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
-         t0: float, t1: float, accounts, num_accounts: int, signals,
-         weather, events, device) -> Tuple[T.SimState, T.StepRecord]:
-    """Scan the batched engine step from ``init_state`` over [t0, t1)."""
-    dev = resolve_device(device)
-    n_steps = int(round((t1 - t0) / system.dt))
+def _scan(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
+          st: T.SimState, n_steps: int, signals, weather, events,
+          dev: torch.device) -> Tuple[T.SimState, T.StepRecord]:
+    """Scan the batched engine step ``n_steps`` times from the batched
+    state ``st`` (on ``dev``). The backfill modes are read off this
+    batch's scenarios, so a batch without EASY skips the reservation
+    machinery. Inputs already on ``dev`` (a session's table and signals)
+    are not copied again."""
+    if n_steps < 1:
+        raise ValueError(f"need at least one step, got {n_steps}")
+    if (st.events is None) != (events is None):
+        raise ValueError("the carry's event state must be present exactly "
+                         "when events= is given: the carry "
+                         f"{'lacks' if st.events is None else 'has'} one, "
+                         f"events={events!r}")
     backfills = tuple(sorted(set(scen.backfill.tolist())))
     table = table.to(dev)
     scen = T.tree_map(lambda x: x.to(dev), scen)
@@ -326,8 +341,6 @@ def _run(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
         if weather.batched and weather.t_wetbulb_c.shape[0] != S:
             raise ValueError(f"need one weather trace per scenario: "
                              f"{weather.t_wetbulb_c.shape[0]} != {S}")
-    st0 = init_state(system, table, t0, t1, accounts, num_accounts, events)
-    st = T.tree_map(lambda x: x.unsqueeze(0).repeat(S, *([1] * x.ndim)), st0)
     rows = []
     for _ in range(n_steps):
         st, rec = engine_step(system, table, st, scen, backfills, signals,
@@ -336,10 +349,38 @@ def _run(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
     return st, _history(rows)
 
 
+def _fresh(system: SystemConfig, table: T.JobTable, n_scen: int, t0: float,
+           t1: float, accounts, num_accounts: int, events,
+           dev: torch.device) -> T.SimState:
+    """``init_state`` on ``dev``, repeated once per scenario."""
+    st0 = init_state(system, table.to(dev), t0, t1, accounts, num_accounts,
+                     events)
+    return T.stack([st0] * n_scen)
+
+
+def _stack_carries(carries: list, dev: torch.device) -> T.SimState:
+    """Unbatched carries stacked on the scenario axis, on ``dev``."""
+    if any(c.t.ndim != 0 for c in carries):
+        raise ValueError("a carry must be unbatched, as simulate and "
+                         "simulate_segment return it")
+    devices = {c.t.device for c in carries}
+    if len(devices) > 1:
+        raise ValueError(f"the carries lie on different devices: "
+                         f"{sorted(map(str, devices))}")
+    if len({c.events is None for c in carries}) > 1:
+        raise ValueError("some carries have an event state and some not")
+    return T.tree_map(lambda x: x.to(dev), T.stack(list(carries)))
+
+
+def _n_steps(system: SystemConfig, t0: float, t1: float) -> int:
+    return int(round((t1 - t0) / system.dt))
+
+
 def simulate(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
              t0: float, t1: float, accounts: T.AccountStats | None = None,
              num_accounts: int = 64, signals: gsig.GridSignals | None = None,
              weather: wsig.WeatherSignals | None = None,
+             carry: T.SimState | None = None,
              events: ev_mod.EventConfig | None = None,
              device="cuda") -> Tuple[T.SimState, T.StepRecord]:
     """Run the twin for one scenario from ``t0`` to ``t1`` (seconds).
@@ -355,17 +396,28 @@ def simulate(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
         enable the grid layer; None runs without it.
       weather: per-step ambient conditions (°C) driving the towers; None
         takes the config's static wet-bulb.
+      carry: start from this unbatched state instead of ``init_state``
+        (resume from a checkpoint, see ``simulate_segment``): ``t0`` and
+        ``t1`` still size the window, and its steps run from the carry's
+        own clock.
       events: an ``EventConfig`` enabling the failure and demand-response
         layer, whose rates, seed and DR event are the scenario's knobs;
-        None runs without it.
+        None runs without it. A ``carry`` must hold an event state
+        exactly when ``events`` is given.
       device: where to run; ``"cpu"`` only when asked for.
     Returns:
       (final SimState, StepRecord history f32[T] per field), without the
       scenario axis.
     """
-    final, hist = _run(system, table, T.stack_scenarios([scen]), t0, t1,
-                       accounts, num_accounts, signals, weather, events,
-                       device)
+    n_steps = _n_steps(system, t0, t1)
+    if carry is not None:
+        return simulate_segment(system, table, carry, scen, n_steps, signals,
+                                weather, events, device)
+    dev = resolve_device(device)
+    final, hist = _scan(system, table, T.stack_scenarios([scen]),
+                        _fresh(system, table, 1, t0, t1, accounts,
+                               num_accounts, events, dev),
+                        n_steps, signals, weather, events, dev)
     return T.row(final, 0), T.row(hist, 0)
 
 
@@ -375,14 +427,16 @@ def simulate_static(system: SystemConfig, table: T.JobTable, policy: str,
                     num_accounts: int = 64,
                     signals: gsig.GridSignals | None = None,
                     weather: wsig.WeatherSignals | None = None,
+                    carry: T.SimState | None = None,
                     events: ev_mod.EventConfig | None = None, device="cuda"):
     """Single scenario named by policy and backfill, every other knob at
     its neutral default (so ``events`` draws no failure). A batch of one
     runs the sweep's arithmetic row for row, and a batch without EASY
     skips the reservation machinery, as the reference's static fast path
-    does."""
+    does. ``carry`` resumes from a checkpoint (see ``simulate``)."""
     return simulate(system, table, T.Scenario.make(policy, backfill), t0, t1,
-                    accounts, num_accounts, signals, weather, events, device)
+                    accounts, num_accounts, signals, weather, carry, events,
+                    device)
 
 
 def simulate_sweep(system: SystemConfig, table: T.JobTable,
@@ -410,5 +464,80 @@ def simulate_sweep(system: SystemConfig, table: T.JobTable,
             raise ValueError(f"need one weather trace per scenario: "
                              f"{len(weather)} != {len(scens)}")
         weather = wsig.stack_weather(weather)
-    return _run(system, table, T.stack_scenarios(list(scens)), t0, t1,
-                accounts, num_accounts, signals, weather, events, device)
+    dev = resolve_device(device)
+    return _scan(system, table, T.stack_scenarios(list(scens)),
+                 _fresh(system, table, len(scens), t0, t1, accounts,
+                        num_accounts, events, dev),
+                 _n_steps(system, t0, t1), signals, weather, events, dev)
+
+
+# ---------------------------------------------------------------------------
+# Segment simulation (resume from a checkpoint; repro_torch.serve).
+# ---------------------------------------------------------------------------
+def simulate_segment(system: SystemConfig, table: T.JobTable,
+                     carry: T.SimState, scen: T.Scenario, n_steps: int,
+                     signals: gsig.GridSignals | None = None,
+                     weather: wsig.WeatherSignals | None = None,
+                     events: ev_mod.EventConfig | None = None,
+                     device="cuda") -> Tuple[T.SimState, T.StepRecord]:
+    """Advance the twin ``n_steps`` from an unbatched carry.
+
+    The carry is the whole simulation state (job lifecycle, node
+    occupancy, ledgers, the plant, the event state and the step cursor),
+    and grid signals, weather, the demand-response window and the
+    failure draws are all taken at the carry's own ``step`` and ``t``, so
+    a chain of segments over the same full-horizon inputs is bit for bit
+    one uninterrupted ``simulate``. This is what a session checkpoints,
+    resumes and forks (``repro_torch.serve``).
+
+    Args:
+      carry: the state to start from: ``init_state(...)`` for a fresh
+        trajectory, or any returned carry (or a decoded snapshot). It is
+        not modified.
+      scen: this segment's knobs (a fork changes them mid-trajectory).
+      n_steps: engine steps to advance.
+      signals / weather: full-horizon per-step inputs, indexed by the
+        carry's absolute step (the last row carried forward past the end).
+      events: must match the carry: an event state is present exactly
+        when an ``EventConfig`` is given.
+      device: where to run; ``"cpu"`` only when asked for. The carry is
+        moved there.
+    Returns:
+      (carry after ``n_steps``, StepRecord of the segment, f32[T] per
+      field), without the scenario axis.
+    """
+    final, hist = simulate_segment_sweep(system, table, [carry], [scen],
+                                         n_steps, signals, weather, events,
+                                         device)
+    return T.row(final, 0), T.row(hist, 0)
+
+
+def simulate_segment_sweep(system: SystemConfig, table: T.JobTable,
+                           carries: list, scens: list, n_steps: int,
+                           signals: gsig.GridSignals | None = None,
+                           weather: wsig.WeatherSignals | None = None,
+                           events: ev_mod.EventConfig | None = None,
+                           device="cuda") -> Tuple[T.SimState, T.StepRecord]:
+    """Batched ``simulate_segment``: B branches that may already have
+    diverged (other fork points, other histories, other absolute steps)
+    advance together, their carries and scenarios stacked on the S axis.
+    Every gather is per row, at the row's own step, so row i is bit for
+    bit branch i advanced alone.
+
+    Args:
+      carries: one unbatched ``SimState`` per branch, all of the same
+        (system, table) lineage and on one device.
+      scens: one ``Scenario`` per branch.
+      n_steps: segment length shared by the batch.
+    Returns:
+      (carries after ``n_steps`` [B, ...], StepRecord [B, T, ...]).
+    """
+    if len(carries) != len(scens):
+        raise ValueError(f"need one carry per scenario: "
+                         f"{len(carries)} != {len(scens)}")
+    if not carries:
+        raise ValueError("need at least one carry")
+    dev = resolve_device(device)
+    return _scan(system, table, T.stack_scenarios(list(scens)),
+                 _stack_carries(carries, dev), int(n_steps), signals,
+                 weather, events, dev)

@@ -10,7 +10,8 @@ dtypes and units follow the JAX leaves field for field (f32 seconds, W,
 
 ``from_arrays`` builds each class from the JAX package's leaves given
 as numpy arrays keyed by field name: both packages then compute from the
-same state, and a later segment-resume path can restart from a carry.
+same state, and a segment (``engine.simulate_segment``) can resume from
+a JAX carry.
 """
 from __future__ import annotations
 
@@ -74,14 +75,15 @@ BACKFILL_NAMES = {"none": BF_NONE, "first-fit": BF_FIRSTFIT, "firstfit": BF_FIRS
                   "easy": BF_EASY}
 
 
-def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], obj):
-    """Apply ``fn`` to every tensor of a (nested) tensor dataclass."""
+def tree_map(fn: Callable, obj):
+    """Apply ``fn`` to every leaf of a (nested) dataclass of tensors, or of
+    host arrays (a session's checkpoints); a None layer stays None."""
     kw = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if dataclasses.is_dataclass(v):
             v = tree_map(fn, v)
-        elif isinstance(v, torch.Tensor):
+        elif v is not None:
             v = fn(v)
         kw[f.name] = v
     return type(obj)(**kw)
@@ -90,6 +92,23 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], obj):
 def row(obj, i: int):
     """Scenario ``i`` of a batched dataclass (drops the leading axis)."""
     return tree_map(lambda x: x[i], obj)
+
+
+def stack(objs: list):
+    """Stack unbatched dataclasses of one structure on a new leading
+    scenario axis (the inverse of ``row``). A field that is None in the
+    first must be None in all of them."""
+    kw = {}
+    for f in dataclasses.fields(objs[0]):
+        vs = [getattr(o, f.name) for o in objs]
+        if vs[0] is None:
+            v = None
+        elif dataclasses.is_dataclass(vs[0]):
+            v = stack(vs)
+        else:
+            v = torch.stack(vs)
+        kw[f.name] = v
+    return type(objs[0])(**kw)
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -121,6 +121,62 @@ def four_hall(system):
         t_supply_margin_c=4.0, topology=jcfg.FacilityTopology(n_halls=4)))
 
 
+def workload_pair(jsystem, pad, **spec):
+    """One synthetic workload made by both packages' dataset copies
+    (``generate``, the jobs running at t = 0 placed, padded to ``pad``),
+    as (port table, JAX table), checked equal leaf for leaf. ``spec``
+    overrides the serve tests' ``WorkloadSpec`` (``conftest.make_jobs``)."""
+    from repro.datasets import synthetic as jsyn
+    from repro_torch.datasets import synthetic as tsyn
+    spec = dict(dict(duration_s=4 * 3600.0, trace_len=8, n_accounts=8,
+                     mean_wall_s=1800.0), **spec)
+    tables = []
+    for syn, system in ((tsyn, to_port(jsystem)), (jsyn, jsystem)):
+        js = syn.generate(system, syn.WorkloadSpec(**spec))
+        js.assign_prepop_placement(0.0, system.n_nodes)
+        tables.append(js.to_table(pad))
+    ttable, jtable = tables
+    for name, w in leaves(jtable).items():
+        if w is not None:
+            assert_exact(w, getattr(ttable, name), f"table {name}")
+    return ttable, jtable
+
+
+def port_signals(system, n_steps, seed=11):
+    """The port's copy of ``conftest.make_signals``: time-varying carbon
+    and a cap schedule between 1.5x and 6x the idle floor (the reference
+    of each stays the constant signals')."""
+    from repro_torch.grid import signals as tgsig
+    rng = np.random.default_rng(seed)
+    floor = system.n_nodes * system.power.idle_node_w
+    sig = tgsig.constant_signals(n_steps, carbon_gkwh=300.0, price_kwh=0.1)
+    carbon = (300.0 + 200.0 * np.sin(np.linspace(0, 6.0, n_steps))
+              ).astype(np.float32)
+    cap = rng.uniform(1.5 * floor, 6.0 * floor, n_steps).astype(np.float32)
+    return dataclasses.replace(sig, carbon_gkwh=torch.from_numpy(carbon),
+                               cap_w=torch.from_numpy(cap))
+
+
+def cat_hists(hists):
+    """Unbatched port histories concatenated along time."""
+    return TT.StepRecord(**{f.name: torch.cat([getattr(h, f.name)
+                                               for h in hists])
+                            for f in dataclasses.fields(TT.StepRecord)})
+
+
+def assert_states_equal(want, got, what=""):
+    """Two port dataclasses (states or histories) bit for bit, leaf by
+    leaf, ``None`` layers included."""
+    for f in dataclasses.fields(want):
+        w, g = getattr(want, f.name), getattr(got, f.name)
+        if dataclasses.is_dataclass(w):
+            assert_states_equal(w, g, f"{what} {f.name}.")
+        elif w is None:
+            assert g is None, f"{what}{f.name}"
+        else:
+            assert_exact(as_np(w), g, f"{what}{f.name}")
+
+
 # ---------------------------------------------------------------------------
 # Guards.
 # ---------------------------------------------------------------------------
