@@ -30,6 +30,16 @@ through their entry points at full width and checks what comes out:
   resume, the neutral fork, coalescing and the snapshot codec are held
   bit for bit (against one uninterrupted scan, the parent, the branch
   advanced alone, a resume from a decoded snapshot);
+* the twin service on the wire (``repro_torch.serve.TwinServer``): the
+  same session served from the card over a Unix socket and driven by
+  the stdlib client ``tools/twin_client``: the root to 1 h one interval
+  a request, the four forks, then five client threads advancing the
+  five branches at once to 1.5 h. Every branch's rows and its 1.5 h
+  checkpoint's digest over the wire equal the in-process session's bit
+  for bit, group-power launches equal the steps the executor
+  dispatched, broken speech and an unknown branch get their error
+  envelopes, and the ledger is closed after ``close()``; then the CLI's
+  ``serve`` subcommand at Frontier's width, as a process;
 * ``fugaku-sweep-2h``, the no-grid sweep at Fugaku's full width (158,976
   nodes, 32 CDU groups, 4,000 jobs, 120 steps of 60 s, 8 scenarios),
   whose fused cooling launches give each group's span of 4,968 nodes
@@ -58,10 +68,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import re
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -71,12 +85,15 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
              "run needs an NVIDIA card")
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import scheduler as sched  # noqa: E402
 from repro_torch.core import stats as stats_mod  # noqa: E402
+from repro_torch.core import transport as tr  # noqa: E402
 from repro_torch.core import types as T  # noqa: E402
 from repro_torch.cooling import model as cooling  # noqa: E402
 from repro_torch.cooling import weather as wsig  # noqa: E402
@@ -150,6 +167,9 @@ EVENTS_NOGRID_T1 = 3600.0    # the no-grid events run: 240 steps
 SESSION_INTERVAL = 60
 SESSION_T1 = 2 * 3600.0
 SESSION_FORK_AT = 4          # intervals: step 240, t = 1 h
+# the wire phase serves the same tree to step 360: five clients advance
+# the five branches 2 intervals at once
+WIRE_ADVANCE = 2
 
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -909,19 +929,27 @@ def cols_equal(a, b):
 def digest_of(carry):
     return snap.carry_digest(snap.encode_carry(carry, binary=True))
 
-def session_path(card):
-    """frontier-session-2h: the root alone for 4 intervals, 4 forks at
-    1 h, then 5 branches coalesced for 4 intervals; one group_power
-    launch a dispatched step (a batch of 5 is one dispatch)."""
+def session_case():
+    """frontier-session-2h's inputs: (system, table, signals, the root's
+    scenario, the four fork deltas by name)."""
     system, table, sig, _ = grid_case()
-    n = SESSION_INTERVAL
-    fork_step = SESSION_FORK_AT * n
-    t_fork = fork_step * system.dt
+    t_fork = SESSION_FORK_AT * SESSION_INTERVAL * system.dt
     peak_it = system.n_nodes * system.power.peak_node_w
     dr = dict(DR_AT, dr_announce_s=t_fork, dr_cap_w=DR_CAP_FRAC * peak_it)
     deltas = {"neutral": {}, "setpoint +2 C": {"setpoint_delta_c": 2.0},
               "DR": dr, "failures": dict(EVENT_FAILURES[1])}
-    scen = T.Scenario.make(*GRID_SWEEP[0][:2])
+    return system, table, sig, T.Scenario.make(*GRID_SWEEP[0][:2]), deltas
+
+def session_path(card):
+    """frontier-session-2h: the root alone for 4 intervals, 4 forks at
+    1 h, then 5 branches coalesced for 4 intervals; one group_power
+    launch a dispatched step (a batch of 5 is one dispatch). Returns the
+    launches, and what the wire phase holds its tree to: each branch's
+    rows to step 360 and the raw digest of its step-360 checkpoint."""
+    system, table, sig, scen, deltas = session_case()
+    dr = deltas["DR"]
+    n = SESSION_INTERVAL
+    fork_step = SESSION_FORK_AT * n
     horizon = int(round(SESSION_T1 / system.dt))
     print(f"session path frontier-session-2h: N={system.n_nodes} "
           f"J={table.num_jobs} horizon={horizon} steps, interval {n}, "
@@ -1088,7 +1116,241 @@ def session_path(card):
           f"decode {timing[('decode', False)] * 1e3!r} / "
           f"{timing[('decode', True)] * 1e3!r} ms; host bytes per branch "
           f"per interval: checkpoint {ck_bytes} + history {hist_bytes}")
+    wire_step = fork_step + WIRE_ADVANCE * n
+    ref = {b: (sess.fetch(b, stop=wire_step, binary=True)["cols"],
+               sess.snapshot(b, at_step=wire_step)["raw_digest"])
+           for b in [0, *ids.values()]}
+    return launches, dict(branches=ref, ids=ids, step=wire_step,
+                          coalesced_bs=coalesced_bs)
+
+def listen_address(tmp, name):
+    """A Unix socket in ``tmp``, or localhost TCP where the path would be
+    too long for AF_UNIX."""
+    path = pathlib.Path(tmp) / name
+    return f"unix:{path}" if len(str(path)) < 100 else "127.0.0.1:0"
+
+def reply_bytes(server, fn):
+    """(reply, round trip s, bytes the server wrote for it)."""
+    before = server.stats()["wire"]["bytes_out"]
+    t = time.perf_counter()
+    out = fn()
+    dt = time.perf_counter() - t
+    return out, dt, server.stats()["wire"]["bytes_out"] - before
+
+def client_cols(reply):
+    """A fetch reply's columns as float64 arrays: the stdlib client's
+    binary dicts or the JSON rows."""
+    if "cols" in reply:
+        return {k: np.asarray(c["values"], np.dtype(c["dtype"])).astype(
+            np.float64) for k, c in reply["cols"].items()}
+    return {k: np.asarray([r[k] for r in reply["rows"]], np.float64)
+            for k in reply["fields"]}
+
+def wire_path(card, ref):
+    """frontier-session-2h served over a Unix socket by a ``TwinServer``
+    on the card and driven by the stdlib client (``tools/twin_client``):
+    the root to step 240 one interval per request, the four forks, then
+    five client threads advance the five branches 2 intervals at once
+    (to step 360), coalesced as the executor batches them. Every branch's
+    rows and step-360 digest equal ``session_path``'s bit for bit;
+    group_power launches once per dispatched step."""
+    from repro_torch.serve import TwinServer
+    from tools.twin_client import TwinClient, TwinError
+    system, table, sig, scen, deltas = session_case()
+    n = SESSION_INTERVAL
+    tmp = tempfile.TemporaryDirectory(prefix="tw")
+    sess = TwinSession(system, table, scen, 0.0, SESSION_T1, n,
+                       signals=sig, events=EventConfig())
+    own = []      # the executor's batches: (branches, the session's s)
+    advance_many = sess.advance_many
+
+    def timed(requests):
+        t = time.perf_counter()
+        try:
+            return advance_many(requests)
+        finally:
+            own.append((len(requests), time.perf_counter() - t))
+    sess.advance_many = timed
+    server = TwinServer(sess, listen_address(tmp.name, "twin.sock"),
+                        batch_window_s=0.05, client_timeout_s=120.0)
+    print(f"wire path frontier-session-2h over {server.address}: root to "
+          f"step {SESSION_FORK_AT * n} one interval a request, 4 forks, 5 "
+          f"client threads x advance {WIRE_ADVANCE} intervals at once")
+    timing = {}
+
+    def drive():
+        with TwinClient(server.address, timeout_s=300.0) as c:
+            rtt = []
+            for _ in range(SESSION_FORK_AT):
+                t = time.perf_counter()
+                c.advance(0, 1)
+                rtt.append(time.perf_counter() - t)
+            timing["advance"] = (rtt, list(own))
+            ids = {name: c.fork(0, d)["branch"] for name, d in deltas.items()}
+        if ids != ref["ids"]:
+            raise SystemExit(f"wire: forks got ids {ids}, the session "
+                             f"phase {ref['ids']}")
+        branches = [0, *ids.values()]
+        barrier, errors = threading.Barrier(len(branches)), []
+
+        def advance(b):
+            try:
+                with TwinClient(server.address, timeout_s=300.0) as c:
+                    barrier.wait(timeout=60.0)
+                    c.advance(b, WIRE_ADVANCE)
+            except Exception as e:   # noqa: BLE001 - a failed phase below
+                errors.append((b, repr(e)))
+        threads = [threading.Thread(target=advance, args=(b,))
+                   for b in branches]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300.0)
+        timing["coalesced"] = time.perf_counter() - t
+        if errors or any(th.is_alive() for th in threads):
+            raise SystemExit(f"wire: client threads failed: {errors}")
+        return branches
+
+    try:
+        branches, wall, launches = run_counted(drive)
+        c1 = sess.counters
+        ticks = c1["coalesced_batches"] + (c1["segments"]
+                                           - c1["batched_branches"])
+        dispatched = ticks * n
+        print(f"[{card}] wire: {wall!r} s in all, launches {launches} for "
+              f"{dispatched} dispatched steps ({ticks} dispatches of "
+              f"{c1['segments']} branch-intervals); the executor's batches, "
+              f"branches each: {[k for k, _ in own]}; session counters "
+              f"{c1}")
+        if launches["group_power"] != dispatched or launches["fused_cooling"]:
+            raise SystemExit(f"wire: {dispatched} dispatched steps launched "
+                             f"{launches}")
+        step = ref["step"]
+        with TwinClient(server.address, timeout_s=300.0) as c:
+            cost = {}
+            for b in branches:
+                want, digest = ref["branches"][b]
+                fb, *cost["fetch bin"] = reply_bytes(server, lambda: c.fetch(
+                    b, stop=step, binary=True))
+                fj, *cost["fetch JSON"] = reply_bytes(server, lambda: c.fetch(
+                    b, stop=step))
+                got = client_cols(fb)
+                if not (cols_equal(got, want) and
+                        cols_equal(client_cols(fj), got)):
+                    raise SystemExit(f"wire: branch {b}'s rows over the wire "
+                                     f"differ from the session phase's")
+                sb, *cost["snapshot bin"] = reply_bytes(
+                    server, lambda: c.snapshot(b, at_step=step, binary=True))
+                sj, *cost["snapshot JSON"] = reply_bytes(
+                    server, lambda: c.snapshot(b, at_step=step))
+                if not sb["raw_digest"] == sj["raw_digest"] == digest:
+                    raise SystemExit(f"wire: branch {b}'s step-{step} "
+                                     f"snapshot digest differs")
+                if b == 0:       # the root: all 360 rows
+                    root_cost = dict(cost)
+            print(f"wire: every branch's rows to step {step} (binary and "
+                  f"JSON fetches) and its step-{step} snapshot digest (both "
+                  f"dialects) equal the in-process session's, bit for bit")
+            print(f"[{card}] wire at Frontier's width, the root ({step} "
+                  f"rows; a snapshot at step {step}): " + "; ".join(
+                      f"{k} {nb} B in {dt * 1e3!r} ms"
+                      for k, (dt, nb) in root_cost.items()))
+            try:
+                c.advance(999999, 1)
+                raise SystemExit("wire: an unknown branch was advanced")
+            except TwinError as e:
+                if e.error != "session":
+                    raise SystemExit(f"wire: unknown branch got {e.frame}")
+            if c.state()["kind"] != "state_ok":
+                raise SystemExit("wire: the connection died after a "
+                                 "session error")
+        family, addr = tr.parse_address(server.address)
+        with socket.socket(family, socket.SOCK_STREAM) as s:
+            s.settimeout(60.0)
+            s.connect(addr)
+            rfile = s.makefile("rb")
+            tr.read_any_frame(rfile)
+            s.sendall(b"this is not json\n")
+            reply = tr.read_any_frame(rfile)
+            if reply.get("error") != "protocol":
+                raise SystemExit(f"wire: garbage got {reply}")
+            try:
+                tr.read_any_frame(rfile)
+                raise SystemExit("wire: the connection stayed up after "
+                                 "garbage")
+            except ConnectionError:
+                pass
+            rfile.close()
+    finally:
+        stats = server.close()
+        tmp.cleanup()
+    alive = [c.client_id for c in server.clients if c.thread.is_alive()]
+    if stats["n_open"] or alive:
+        raise SystemExit(f"wire: after close {stats['n_open']} connections "
+                         f"open, handlers alive {alive}")
+    rtt, spent = timing["advance"]
+    wire_bs = len(branches) * WIRE_ADVANCE * n / timing["coalesced"]
+    print(f"wire: protocol error and a closed connection for garbage, a "
+          f"session error on a connection that stays up for an unknown "
+          f"branch; after close 0 of {stats['n_clients']} connections open, "
+          f"no handler alive")
+    print(f"[{card}] wire rates: branch-steps/s over the wire {wire_bs!r} (5 "
+          f"clients, advance {WIRE_ADVANCE} each, {timing['coalesced']!r} s "
+          f"of wall; the session's own time for the executor's last batch, "
+          f"{own[-1][0]} branches: {own[-1][1]!r} s) against in-process "
+          f"coalesced {ref['coalesced_bs']!r}; advance of one interval: "
+          f"round trips {[x * 1e3 for x in rtt]!r} ms, the session's own "
+          f"{[x * 1e3 for _, x in spent]!r} ms")
     return launches
+
+def serve_subcommand(card):
+    """``python -m repro_torch.launch.simulate serve`` at Frontier's width
+    on the card, driven by ``tools/twin_client`` over 2 intervals."""
+    tmp = tempfile.TemporaryDirectory(prefix="tw")
+    address = listen_address(tmp.name, "serve.sock")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.simulate", "serve",
+           "--system", "frontier", "--jobs", "1238", "-t", "30m",
+           "--interval-steps", str(SESSION_INTERVAL), "--listen", address,
+           "--max-seconds", "400"]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        start = json.loads(proc.stdout.readline() or "{}")
+        up_s = time.perf_counter() - t
+        if "serving" not in start:
+            proc.kill()
+            raise SystemExit(f"serve: no startup line; stderr "
+                             f"{proc.communicate()[1][-2000:]}")
+        client = subprocess.run(
+            [sys.executable, "-m", "tools.twin_client", "--connect",
+             start["serving"], "--timeout", "300", "--script",
+             "advance 0 2; fetch 0; state; shutdown"], cwd=ROOT,
+            capture_output=True, text=True, timeout=400)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        tmp.cleanup()
+    replies = [json.loads(line) for line in client.stdout.splitlines()]
+    kinds = [r["kind"] for r in replies]
+    if proc.returncode != 0 or client.returncode != 0 or kinds != [
+            "hello", "advance_ok", "fetch_ok", "state_ok", "shutdown_ok"]:
+        raise SystemExit(f"serve: rc {proc.returncode}, client rc "
+                         f"{client.returncode} {kinds}; {err[-2000:]} "
+                         f"{client.stderr[-2000:]}")
+    served = json.loads(out.splitlines()[-1])
+    n_rows = len(replies[2]["rows"])
+    if replies[0]["system"]["n_nodes"] != 9600 or n_rows != \
+            2 * SESSION_INTERVAL or "served" not in served:
+        raise SystemExit(f"serve: hello {replies[0]['system']}, {n_rows} "
+                         f"rows, last line {served}")
+    print(f"[{card}] serve subcommand: frontier N="
+          f"{replies[0]['system']['n_nodes']} on the card, {up_s!r} s from "
+          f"start to serving; {n_rows} rows fetched; served {served}")
 
 def small_session_reference(card):
     """A small session tree on the card and on the CPU (4-hall plant, no
@@ -1709,8 +1971,12 @@ def main():
     elapsed("frontier-events-6h")
     events_nogrid_path(card)
     elapsed("frontier-events no-grid 1 h")
-    session = session_path(card)
+    session, wire_ref = session_path(card)
     elapsed("frontier-session-2h")
+    wire = wire_path(card, wire_ref)
+    del wire_ref
+    serve_subcommand(card)
+    elapsed("wire and the serve subcommand")
     fugaku_path(card)
     elapsed("fugaku-sweep-2h")
     serve_path(card, lm)
@@ -1721,7 +1987,9 @@ def main():
     small_session_reference(card)
     small_lm_reference()
     print(f"session launches: group_power {session['group_power']}, "
-          f"fused_cooling {session['fused_cooling']}")
+          f"fused_cooling {session['fused_cooling']}; wire launches: "
+          f"group_power {wire['group_power']}, fused_cooling "
+          f"{wire['fused_cooling']}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [fused, group, *lm]}))

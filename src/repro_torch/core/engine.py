@@ -34,6 +34,14 @@ bit, and a batch of branches at different steps equals each branch run
 alone (``repro_torch.serve`` builds its sessions on them). The port runs
 eagerly, so there is no compiled runner to cache.
 
+Phase spans: when a ``repro_torch.obs.timing`` timer is installed on the
+calling thread (``obs.use(timer)``), every entry point times its scan as
+one ``engine.scan`` span, synchronising the card inside it. The port
+compiles nothing, so it has none of the reference's ``engine.lower`` and
+``engine.compile`` spans nor its static-cache counters. With no timer
+the scan runs exactly as without the observability layer: no span, no
+synchronisation.
+
 Entry points (``simulate``, ``simulate_static``, ``simulate_sweep`` and
 the segment functions) run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card a CUDA request raises.
@@ -55,6 +63,7 @@ from repro_torch.core import types as T
 from repro_torch.events import process as ev_mod
 from repro_torch.grid import powercap
 from repro_torch.grid import signals as gsig
+from repro_torch.obs import timing as obs_timing
 from repro_torch.power import losses as plosses
 from repro_torch.power import model as pmodel
 from repro_torch.systems.config import SystemConfig
@@ -341,6 +350,23 @@ def _scan(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
         if weather.batched and weather.t_wetbulb_c.shape[0] != S:
             raise ValueError(f"need one weather trace per scenario: "
                              f"{weather.t_wetbulb_c.shape[0]} != {S}")
+    timer = obs_timing.current()
+    if timer is None:
+        return _steps(system, table, st, scen, backfills, n_steps, signals,
+                      weather, events)
+    # observed run: one span around the scan, the card synchronised
+    # inside it so that the span times the device's work, not the enqueue
+    with timer.span("engine.scan", system=system.name, n_steps=n_steps,
+                    n_scenarios=S):
+        out = _steps(system, table, st, scen, backfills, n_steps, signals,
+                     weather, events)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return out
+
+
+def _steps(system, table, st, scen, backfills, n_steps, signals, weather,
+           events) -> Tuple[T.SimState, T.StepRecord]:
     rows = []
     for _ in range(n_steps):
         st, rec = engine_step(system, table, st, scen, backfills, signals,

@@ -9,22 +9,35 @@ The failure and demand-response flags (--failure-rate, --cdu-failure-rate,
 --cell-failure-rate, --failure-corr, --failure-seed, --repair,
 --no-requeue, --dr-announce, --dr-notice, --dr-duration, --dr-cap-mw)
 turn the event layer on, as in the JAX CLI; a DR event without a grid
-trace runs under neutral grid signals. The JAX CLI's --weather-trace
-waits for the port of the trace readers. Runs on the card unless
-``--device cpu`` is given. Prints ``format_stats`` per run.
+trace runs under neutral grid signals. The flight recorder is the JAX
+CLI's: --manifest (a schema-versioned run manifest), --events (the NDJSON
+event log), --metrics (per-step telemetry frames to a file, tcp:host:port
+or unix:/path), --quiet and --json; --profile DIR records a
+``torch.profiler`` trace (CPU and, on the card, CUDA activity) and writes
+it as a Chrome trace into DIR. Runs on the card unless ``--device cpu``
+is given.
+
+Subcommand ``serve`` runs the twin as a persistent service
+(``repro_torch.serve.cli``, docs/serving.md). The JAX CLI's ``train`` and
+``calibrate`` subcommands and its --weather-trace, --trace and external
+scheduler flags wait for the port of their layers.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import pathlib
+import sys
 import time
 
+from repro_torch import obs, resolve_device
 from repro_torch.core import engine as eng
 from repro_torch.core import stats as stats_mod
 from repro_torch.core import types as T
 from repro_torch.datasets import loaders
 from repro_torch.events import EventConfig
 from repro_torch.grid import signals as gsig
+from repro_torch.launch import env as launch_env
 from repro_torch.systems.config import FacilityTopology, get_system
 
 
@@ -91,7 +104,21 @@ def _failure_kwargs(args, t0):
     return kw
 
 
+# subcommands of the JAX CLI that wait for the port of their layer
+UNPORTED = {"train": "ES policy training (ROADMAP item 13)",
+            "calibrate": "cooling-plant calibration (ROADMAP item 12)"}
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv[:1] == ["serve"]:
+        # twin as a service (repro_torch.serve, docs/serving.md): a
+        # persistent session with snapshot and fork over a socket
+        from repro_torch.serve import cli as serve_cli
+        return serve_cli.main(argv[1:])
+    if argv[:1] and argv[0] in UNPORTED:
+        raise SystemExit(f"simulate {argv[0]}: {UNPORTED[argv[0]]} is not "
+                         f"ported to repro_torch yet")
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--system", default="marconi100")
     ap.add_argument("--scale", type=int, default=0,
@@ -134,6 +161,19 @@ def main(argv=None):
                     help="DR cap level (MW)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only on request)")
+    # flight recorder (docs/observability.md)
+    ap.add_argument("--manifest", default=None, metavar="FILE",
+                    help="write a schema-versioned run manifest JSON")
+    ap.add_argument("--events", default=None, metavar="FILE",
+                    help="write lifecycle events (scan start and end) as "
+                         "NDJSON")
+    ap.add_argument("--metrics", default=None, metavar="TARGET",
+                    help="stream per-step telemetry as NDJSON frames to a "
+                         "file path, tcp:host:port, or unix:/path")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="record a torch.profiler trace of the run and "
+                         "write it into DIR as a Chrome trace")
+    obs.add_output_flags(ap)
     args = ap.parse_args(argv)
 
     sys_ = build_system(args.system, args.scale, args.halls)
@@ -152,7 +192,82 @@ def main(argv=None):
             # signals (zero carbon and price, uncapped) carry it
             signals = gsig.neutral(int(round((t1 - t0) / sys_.dt)))
 
+    rep = obs.Reporter.from_flags(args)
+    recorder = None
+    if args.manifest or args.events:
+        recorder = obs.RunRecorder(manifest_path=args.manifest,
+                                   events_path=args.events)
+        recorder.begin(
+            sys_, command="sweep" if args.sweep else "simulate", argv=argv,
+            scenario={"policy": args.policy, "backfill": args.backfill,
+                      "sweep": args.sweep, "halls": args.halls,
+                      "failure_rate_per_day": args.failure_rate,
+                      "failure_seed": args.failure_seed,
+                      "dr_cap_mw": args.dr_cap_mw, "device": args.device,
+                      "t0_s": t0, "duration_s": t1 - t0},
+            seed=args.seed, jobs=js,
+            extra={"env_preset": launch_env.report(
+                "sweep" if args.sweep else "throughput")})
+        recorder.event("run_start")
+    timer = obs.SpanTimer(listener=recorder.span_listener
+                          if recorder else None)
+    profiler = _start_profile(args) if args.profile else None
+
     wall0 = time.perf_counter()
+    with obs.use(timer):
+        runs = _run(args, sys_, table, t0, t1, fail_kw, signals, events)
+    wall = time.perf_counter() - wall0
+    if profiler is not None:
+        profiler.stop()
+        path = pathlib.Path(args.profile) / "trace.json"
+        profiler.export_chrome_trace(str(path))
+        rep.info(f"profiler trace -> {path}")
+
+    sink = obs.MetricsSink(args.metrics) if args.metrics else None
+    summaries = {}
+    for (p, b), final, hist in runs:
+        s = stats_mod.summarize(sys_, table, final, hist)
+        label = f"{p}:{b}"
+        summaries[label] = s
+        if sink is not None:
+            obs.stream_history(sink, recorder.run_id if recorder
+                               else "anonymous", sys_, table, final, hist,
+                               label=label, summary=s)
+        rep.result(f"=== {args.system} policy={p} backfill={b} on "
+                   f"{args.device} (sim {t1 - t0:.0f}s in {wall:.1f}s "
+                   f"wall) ===\n" + stats_mod.format_stats(s),
+                   key=label, value=s)
+    if sink is not None:
+        sink.close()
+        rep.info(f"metrics: {sink.n_frames} frames -> {args.metrics}")
+    if recorder is not None:
+        recorder.event("run_end", wall_s=wall)
+        counters = {}
+        if sink is not None:
+            counters["metrics_frames"] = sink.n_frames
+        recorder.finalize(spans=timer.summary(), counters=counters,
+                          wall_s=wall, summaries=summaries)
+        rep.info(f"manifest -> {args.manifest}" if args.manifest
+                 else f"events -> {args.events}")
+    rep.flush_json()
+
+
+def _start_profile(args):
+    """A started ``torch.profiler`` over the run: CPU activity, and CUDA
+    activity when the run is on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    pathlib.Path(args.profile).mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(args.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _run(args, sys_, table, t0, t1, fail_kw, signals, events):
+    """One CLI invocation on the engine: a list of ((policy, backfill),
+    final, hist), one per scenario."""
     if args.sweep or fail_kw:
         specs = [(p, b or "none") for p, _, b in
                  (s.partition(":") for s in args.sweep)] if args.sweep \
@@ -161,20 +276,13 @@ def main(argv=None):
             sys_, table, [T.Scenario.make(p, b, **fail_kw)
                           for p, b in specs], t0, t1,
             signals=signals, events=events, device=args.device)
-        runs = [(spec, T.row(finals, i), T.row(hists, i))
+        return [(spec, T.row(finals, i), T.row(hists, i))
                 for i, spec in enumerate(specs)]
-    else:
-        final, hist = eng.simulate_static(sys_, table, args.policy,
-                                          args.backfill, t0, t1,
-                                          device=args.device)
-        runs = [((args.policy, args.backfill), final, hist)]
-    wall = time.perf_counter() - wall0
-    for (p, b), final, hist in runs:
-        s = stats_mod.summarize(sys_, table, final, hist)
-        print(f"=== {args.system} policy={p} backfill={b} on {args.device} "
-              f"(sim {t1 - t0:.0f}s in {wall:.1f}s wall) ===\n" +
-              stats_mod.format_stats(s))
+    final, hist = eng.simulate_static(sys_, table, args.policy,
+                                      args.backfill, t0, t1,
+                                      device=args.device)
+    return [((args.policy, args.backfill), final, hist)]
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

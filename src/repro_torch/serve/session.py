@@ -27,9 +27,10 @@ branch's live carry stays on the session's device (the card unless
 ``device="cpu"``). The table, grid signals and weather are moved to the
 device once, when the session is built.
 
-Thread-safety: one re-entrant lock around every entry point. The
-network server that funnels clients into a session comes with the port
-of the scheduler wire.
+Thread-safety: one re-entrant lock around every entry point. The server
+(``repro_torch.serve.server``) funnels every advance through its one
+executor thread, which runs the device work; its handler threads answer
+forks, snapshots and fetches from the host copies under the same lock.
 """
 from __future__ import annotations
 
@@ -135,6 +136,24 @@ class TwinSession:
                 f"unknown branch id {branch_id!r} (known: "
                 f"{sorted(self.branches)})") from None
         return br
+
+    def unknown_branches(self, branch_ids):
+        """Partition ids into (unknown set, known-ids list), atomically.
+
+        The server's coalescing executor screens each batch with this so
+        one client's stale id fails only its own request and never
+        poisons the shared batch, under the session lock while handler
+        threads fork concurrently. Each unknown id counts as one error.
+        """
+        with self._lock:
+            unknown = {b for b in branch_ids if b not in self.branches}
+            self.counters["errors"] += len(unknown)
+            return unknown, sorted(self.branches)
+
+    def count_error(self) -> None:
+        """Count one server-side failure under the session lock."""
+        with self._lock:
+            self.counters["errors"] += 1
 
     def _checkpoint_step(self, br: Branch, at_step) -> int:
         step = br.step if at_step is None else int(at_step)
