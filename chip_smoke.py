@@ -44,6 +44,22 @@ through their entry points at full width and checks what comes out:
   nodes, 32 CDU groups, 4,000 jobs, 120 steps of 60 s, 8 scenarios),
   whose fused cooling launches give each group's span of 4,968 nodes
   to one CTA of 512 threads;
+* ``frontier-replay-6h``, measured-power replay (``repro_torch.traces``):
+  the Frontier loader's day with whole-second times and a seeded
+  measured per-node power channel for two thirds of the jobs, written
+  as a trace NPZ and read back by ``load_trace``, packed with compact
+  (int32) time columns, under the repo's measured weather week (read
+  with the stdlib, loaded from an NPZ); fig4's four (policy, backfill)
+  pairs at setpoint +0 and +2 °C, 8 scenarios, 6 h, one fused cooling
+  launch a step. Row 0 = solo, and on the first hour an all-sentinel
+  channel = the model table and compact time = float32 time, bit for
+  bit; then the CLI's ``--trace --replay-power --weather-trace`` as a
+  process;
+* cooling-plant calibration (``repro_torch.traces.calibrate``) over
+  the committed 8,640-step fixture: the graphed rollout against the
+  eager loop bit for bit, the card against the CPU, a whole-fixture fit
+  recovering the fixture's true parameters within 2 %, then
+  ``simulate calibrate --out`` and ``--check`` as processes;
 * LM serving (``repro_torch.launch.serve_lm``) of qwen2.5-3b, rwkv6-7b
   and zamba2-7b at full width, one after another: 4 prompts of 512
   tokens and 16 greedy decode steps, whose prefills run the flash
@@ -51,7 +67,9 @@ through their entry points at full width and checks what comes out:
   the bf16 prefill's logits held to the float32 prefill's;
 
 and a small card-against-CPU check of each path (with weather and
-failures on, also of the event layer's draws; a small session too). Before the paths, each
+failures on, also of the event layer's draws; a small session too; the
+SWF fixture replayed with failures). The trace and calibration phases
+must not import pandas or pyarrow. Before the paths, each
 kernel is held to its plain version at the paths' shapes and ragged ones
 and timed (CUDA graph, eager, host enqueue, the launch floor; for the
 power-topology kernels also at Fugaku's width), and the power-topology
@@ -67,6 +85,7 @@ or when the ``src/repro_torch`` package is not beside this script.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import pathlib
@@ -98,6 +117,7 @@ from repro_torch.core import types as T  # noqa: E402
 from repro_torch.cooling import model as cooling  # noqa: E402
 from repro_torch.cooling import weather as wsig  # noqa: E402
 from repro_torch.datasets import loaders  # noqa: E402
+from repro_torch.datasets import swf  # noqa: E402
 from repro_torch.datasets.synthetic import WorkloadSpec, generate  # noqa: E402
 from repro_torch.events import EventConfig  # noqa: E402
 from repro_torch.grid import signals as gsig  # noqa: E402
@@ -123,6 +143,8 @@ from repro_torch.models.zoo import get_api  # noqa: E402
 from repro_torch.serve import TwinSession  # noqa: E402
 from repro_torch.serve import snapshot as snap  # noqa: E402
 from repro_torch.systems.config import FacilityTopology, get_system  # noqa: E402
+from repro_torch import traces  # noqa: E402
+from repro_torch.traces import calibrate as cal  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
@@ -135,6 +157,7 @@ SWEEP = [("fcfs", "easy"), ("fcfs", "none"), ("sjf", "first-fit"),
          ("acct_fugaku_pts", "easy"), ("thermal_aware", "easy"),
          ("replay", "none")]
 FRONTIER_T1 = 6 * 3600.0     # the CLI's default window
+ADMIT_WINDOW = 480           # steps of frontier-sweep-6h's admission rerun
 FUGAKU_T1 = 2 * 3600.0       # 120 steps at Fugaku's dt = 60 s
 # frontier-grid-6h: benchmarks/fig_carbon.py's cap levels and carbon
 # weights under first-fit, plus price_aware and two EASY rows
@@ -170,6 +193,25 @@ SESSION_FORK_AT = 4          # intervals: step 240, t = 1 h
 # the wire phase serves the same tree to step 360: five clients advance
 # the five branches 2 intervals at once
 WIRE_ADVANCE = 2
+
+# frontier-replay-6h: fig4's four (policy, backfill) pairs
+# (benchmarks/fig4_pm100.py) at two supply setpoints, on the Frontier day
+# with a measured power channel for two thirds of the jobs, under the
+# repo's measured weather week
+FIG4 = [("replay", "none"), ("fcfs", "none"), ("fcfs", "easy"),
+        ("priority", "first-fit")]
+REPLAY_SWEEP = [(p, b, d) for d in (0.0, 2.0) for p, b in FIG4]
+REPLAY_SEED = 25
+REPLAY_WINDOW = 240          # steps of the bit-for-bit identity checks
+# calibration: tests/test_calibrate.py's recovery tolerance, and the CPU
+# parity test's per-step tolerance (tests/test_torch_calibrate.py)
+CAL_DIR = ROOT / "tests" / "data" / "calibration"
+CAL_RECOVERY = 0.02
+CAL_STEP_RTOL = 1e-5
+CAL_CHANNELS = ("t_basin_c", "t_supply_c", "t_return_c", "pue")
+# the reference's test_replay_composes_with_events scenario
+KILL = dict(failure_seed=3.0, node_fail_rate=5e-4, cdu_fail_rate=2e-5,
+            failure_corr=0.5, repair_s=900.0)
 
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -632,9 +674,13 @@ def main_path(card, entry):
               f"t_tower_return_max_c={s['t_tower_return_max_c']:.3f}")
     check_row_vs_solo("no-grid sweep", finals, hists, eng.simulate_static(
         system, table, *SWEEP[0], 0.0, FRONTIER_T1))
-    admit_s, total = admission_share(run)
-    print(f"[{card}] admission loop: {admit_s!r} s of {total!r} s "
-          f"= {admit_s / total!r} of step time (synchronised run)")
+    # the synchronised rerun covers the first ADMIT_WINDOW steps only (cut
+    # from the whole 6 h to keep the script's time)
+    admit_s, total = admission_share(lambda: eng.simulate_sweep(
+        system, table, scens, 0.0, ADMIT_WINDOW * system.dt))
+    print(f"[{card}] admission loop ({ADMIT_WINDOW} steps): {admit_s!r} s "
+          f"of {total!r} s = {admit_s / total!r} of step time (synchronised "
+          f"run)")
     print(f"[{card}] fused_cooling total on the main path: "
           f"{entry['ms'] * n_steps!r} ms on the card ({n_steps} launches x "
           f"{entry['ms']!r} ms) of {wall * 1e3!r} ms")
@@ -1407,14 +1453,14 @@ def small_case():
     return system, js.to_table(80)
 
 def card_vs_cpu(label, system, table, scens, signals=None, weather=None,
-                events=None, t1=2 * 3600.0):
+                events=None, t1=2 * 3600.0, num_accounts=8):
     """The card's engine (with the kernels) against the port's CPU engine
     (plain versions): schedules exactly, floats at 1e-4. ``throttle_frac``
     is 1 - c with c near 1, so it also gets atol 1e-6 (a one-ulp
     difference in c from another summation order). With the event layer
     the repair times also go through the card's ``log1p``: a schedule
     that differs is reported with the first step whose counts differ."""
-    kw = dict(num_accounts=8, signals=signals, weather=weather,
+    kw = dict(num_accounts=num_accounts, signals=signals, weather=weather,
               events=events)
     fg, hg = eng.simulate_sweep(system, table, scens, 0.0, t1, **kw)
     fc, hc = eng.simulate_sweep(system, table, scens, 0.0, t1, **kw,
@@ -1513,6 +1559,301 @@ def small_events_reference(card):
               f"matches the CPU engine, schedules exact, floats and event "
               f"state within 1e-4; jobs killed {killed}, node-hours down "
               f"{(fg.events.node_downtime_s / 3600.0).tolist()}")
+
+# ---------------------------------------------------------------------------
+# Trace replay and calibration (repro_torch.traces).
+# ---------------------------------------------------------------------------
+def measured_channel(js, prof_dt, seed, frac=2.0 / 3.0):
+    """A measured per-node power profile, f32[J, Q] on the prof_dt grid
+    over the longest job: the model profile (LOCF) times a slow seeded
+    drift of 2-10 % with a 30 min to 2 h period, for ``frac`` of the
+    jobs; the others stay at the -1 "no measurement" sentinel."""
+    rng = np.random.default_rng(seed)
+    J, P = js.power_prof.shape
+    q = np.arange(max(1, int(np.ceil(float(np.max(js.wall)) / prof_dt))))
+    amp = rng.uniform(0.02, 0.10, (J, 1))
+    period = rng.uniform(1800.0, 7200.0, (J, 1))
+    phase = rng.uniform(0.0, 2.0 * np.pi, (J, 1))
+    drift = 1.0 + amp * np.sin(2.0 * np.pi * q * prof_dt / period + phase)
+    meas = (js.power_prof[:, np.minimum(q, P - 1)] * drift).astype(
+        np.float32)
+    meas[rng.random(J) >= frac] = -1.0
+    return meas
+
+def jobsets_equal(a, b):
+    return all((x is None and y is None) or
+               (x is not None and y is not None and
+                np.asarray(x).dtype == np.asarray(y).dtype and
+                np.array_equal(x, y))
+               for x, y in ((getattr(a, f.name), getattr(b, f.name))
+                            for f in dataclasses.fields(a)
+                            if f.name != "name"))
+
+def replay_jobset(system, tmp):
+    """The Frontier loader's day with whole-second times (the SWF
+    contract, so every time column is compact) and a measured channel,
+    written with ``jobset_to_npz`` and read back by ``load_trace``."""
+    js = loaders.load_frontier(n_jobs=1238)
+    for f in ("submit", "limit", "wall", "rec_start"):
+        setattr(js, f, np.round(getattr(js, f)))
+    js.power_profile = measured_channel(js, system.prof_dt, REPLAY_SEED)
+    path = tmp / "frontier-replay.npz"
+    traces.jobset_to_npz(js, path, digest="frontier-replay")
+    back = loaders.load_trace([path])
+    if not jobsets_equal(js, back):
+        raise SystemExit("replay: the trace NPZ did not read back as written")
+    return back, path
+
+def weather_npz(tmp):
+    """tests/data/weather_week.csv read with the stdlib, written as an NPZ
+    of numeric seconds, dry-bulb and humidity: the card's weather path
+    reads it with numpy alone (Stull wet-bulb in ``load_weather``)."""
+    import csv
+    import datetime
+    with open(ROOT / "tests" / "data" / "weather_week.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    path = tmp / "weather_week.npz"
+    np.savez(path, timestamp=np.array(
+        [datetime.datetime.fromisoformat(r["timestamp"]).timestamp()
+         for r in rows]),
+        t_drybulb_c=np.array([float(r["t_drybulb_c"]) for r in rows]),
+        rh_pct=np.array([float(r["rh_pct"]) for r in rows]))
+    return path
+
+def trees_equal(a, b) -> bool:
+    """Two port dataclasses (states or histories) bit for bit, NaN equal
+    to NaN, None layers included."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            if not trees_equal(x, y):
+                return False
+        elif x is None or y is None:
+            if x is not y:
+                return False
+        elif x.dtype != y.dtype or x.shape != y.shape or not bool(
+                ((x == y) | (x.isnan() & y.isnan())).all()
+                if x.is_floating_point() else torch.equal(x, y)):
+            return False
+    return True
+
+def replay_path(card, tmp):
+    """frontier-replay-6h: the no-grid sweep at Frontier's width replaying
+    a measured power channel, compact time columns, the measured weather
+    week; one fused_cooling launch a step. Returns the trace and weather
+    NPZ paths for the CLI phase."""
+    system = get_system("frontier")
+    js, npz = replay_jobset(system, tmp)
+    js.assign_prepop_placement(0.0, system.n_nodes)
+    table = js.to_table(compact_time=True, replay_power=True)
+    for f in ("submit", "limit", "wall", "rec_start"):
+        if getattr(table, f).dtype != torch.int32:
+            raise SystemExit(f"replay: {f} is {getattr(table, f).dtype}")
+    n_steps = int(round(FRONTIER_T1 / system.dt))
+    wx = weather_npz(tmp)
+    weather = traces.load_weather(wx, n_steps, system.dt)
+    scens = [T.Scenario.make(p, b, setpoint_delta_c=d)
+             for p, b, d in REPLAY_SWEEP]
+    S = len(scens)
+    prof = table.power_profile
+    measured = int((prof >= 0).any(1).sum())
+    print(f"replay path: frontier N={system.n_nodes} "
+          f"G={system.cooling.n_groups} J={table.num_jobs} ({measured} "
+          f"measured) steps={n_steps} S={S}; channel f32{list(prof.shape)} "
+          f"= {prof.numel() * prof.element_size()} B; wet-bulb "
+          f"{float(weather.t_wetbulb_c.min())!r}.."
+          f"{float(weather.t_wetbulb_c.max())!r} C")
+    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, FRONTIER_T1,
+                                     weather=weather)
+    (finals, hists), wall, launches = run_counted(run)
+    print(f"[{card}] replay sweep: {n_steps} steps x {S} scenarios in "
+          f"{wall!r} s = {n_steps / wall!r} steps/s, launches {launches}")
+    if launches["fused_cooling"] != n_steps or launches["group_power"] != 0:
+        raise SystemExit(f"replay sweep of {n_steps} steps launched "
+                         f"{launches}")
+    check_run("replay sweep", finals, hists, n_steps, S)
+    ledger = hists.power_total.double().sum(1) * system.dt
+    torch.testing.assert_close(finals.energy_total.double(), ledger,
+                               rtol=1e-4, atol=0.0,
+                               msg=lambda m: f"replay energy ledger: {m}")
+    for i, (p, b, d) in enumerate(REPLAY_SWEEP):
+        s = stats_mod.summarize(system, table, T.row(finals, i),
+                                T.row(hists, i))
+        print(f"  {p}:{b} setpoint {d:+.0f} C: jobs_completed="
+              f"{s['jobs_completed']:.0f} avg_util={s['avg_util']:.4f} "
+              f"avg_pue={s['avg_pue']:.5f} "
+              f"t_tower_return_max_c={s['t_tower_return_max_c']:.3f}")
+    check_row_vs_solo("replay sweep", finals, hists, eng.simulate_static(
+        system, table, *FIG4[0], 0.0, FRONTIER_T1, weather=weather))
+    del finals, hists
+
+    # the bit-for-bit identities, on the first REPLAY_WINDOW steps
+    t_w = REPLAY_WINDOW * system.dt
+    window = lambda tab: eng.simulate_sweep(system, tab, scens, 0.0, t_w,
+                                            weather=weather)
+    model = js.to_table(compact_time=True)
+    sentinel = dataclasses.replace(model, power_profile=torch.full_like(
+        prof, -1.0))
+    for label, a, b in (
+            ("all-sentinel replay = the model table", model, sentinel),
+            ("compact time = float32 time", js.to_table(replay_power=True),
+             table)):
+        ra, rb = window(a), window(b)
+        if not (trees_equal(ra[0], rb[0]) and trees_equal(ra[1], rb[1])):
+            raise SystemExit(f"replay: {label} does not hold bit for bit")
+        print(f"[{card}] replay, {REPLAY_WINDOW} steps x {S}: {label}, "
+              f"final state and history bit for bit")
+    admit_s, total = admission_share(lambda: window(table))
+    print(f"[{card}] replay admission loop ({REPLAY_WINDOW} steps): "
+          f"{admit_s!r} s of {total!r} s = {admit_s / total!r} of step time "
+          f"(synchronised run)")
+    return npz, wx
+
+def replay_cli(card, npz, wx, tmp):
+    """The CLI's trace flags on the card, as a process: the replay NPZ,
+    --replay-power and the weather NPZ; its manifest records the digests."""
+    manifest = tmp / "replay-run.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.simulate", "--system",
+           "frontier", "-t", "1h", "--policy", "fcfs", "--backfill", "easy",
+           "--trace", str(npz), "--replay-power", "--weather-trace", str(wx),
+           "--manifest", str(manifest)]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(
+        os.environ, PYTHONPATH=str(ROOT / "src")), capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise SystemExit(f"replay CLI exited {proc.returncode}: "
+                         f"{proc.stderr[-3000:]}")
+    m = json.loads(manifest.read_text())
+    want = {"weather_trace_digest": traces.source_digest(wx),
+            "trace_digest": traces.source_digest(npz)}
+    got = {k: m.get(k) for k in want}
+    if got != want or m["scenario"]["replay_power"] is not True:
+        raise SystemExit(f"replay CLI manifest: {got} != {want}, scenario "
+                         f"{m['scenario']}")
+    pue = [ln.strip() for ln in proc.stdout.splitlines() if "avg_pue" in ln]
+    print(f"[{card}] replay CLI (frontier, 1 h, fcfs:easy, --trace NPZ "
+          f"--replay-power --weather-trace NPZ) exited 0 in {wall!r} s; "
+          f"manifest weather_trace_digest {got['weather_trace_digest'][:16]}"
+          f"...; {pue}")
+
+def calibrate_path(card, tmp):
+    """Cooling-plant calibration on the card over the whole committed
+    fixture (8,640 steps of 20 s): the graphed rollout against the eager
+    loop, the card against the CPU, the fit's recovery of the truth, then
+    ``simulate calibrate --out`` and ``--check`` as processes."""
+    z = np.load(CAL_DIR / "telemetry.npz", allow_pickle=False)
+    cfg = get_system("frontier").cooling
+    committed = cal.FittedParams.load(CAL_DIR / "fitted_params.json")
+    heat, dt, wb = z["p_it_w"], float(z["dt"]), z["t_wetbulb_c"]
+    obs = {ch: z[ch] for ch in CAL_CHANNELS}
+    roll = cal._Rollout(cfg, tuple(committed.params),
+                        cal._as_group_heat(heat[:REPLAY_WINDOW],
+                                           cfg.n_groups),
+                        dt, wb[:REPLAY_WINDOW], DEV)
+    theta = list(committed.params.values())
+    forward = roll.graphed()
+    per_step = {}
+    for label, fn in (("eager", roll.eager), ("graphed", forward)):
+        fn(theta)                                  # warm
+        t = time.perf_counter()
+        per_step[label] = (fn(theta), (time.perf_counter() - t) * 1e3 /
+                           REPLAY_WINDOW)
+    (eager, eager_ms), (graphed, graph_ms_) = per_step.values()
+    if any(not np.array_equal(eager[ch], graphed[ch])
+           for ch in CAL_CHANNELS):
+        raise SystemExit("calibrate: the graphed rollout differs from the "
+                         "eager loop")
+    print(f"[{card}] calibrate plant step (frontier, 25 groups, one "
+          f"scenario): eager loop {eager_ms!r} ms a step, CUDA graph "
+          f"replay {graph_ms_!r} ms a step ({REPLAY_WINDOW} steps, host "
+          f"clock, observables read back)")
+    t = time.perf_counter()
+    got = cal.simulate_plant(cfg, heat, dt, wb, overrides=committed.params)
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = cal.simulate_plant(cfg, heat, dt, wb, overrides=committed.params,
+                              device="cpu")
+    cpu_s = time.perf_counter() - t
+    errs = {}
+    for ch in CAL_CHANNELS:
+        np.testing.assert_allclose(got[ch], want[ch], rtol=CAL_STEP_RTOL,
+                                   err_msg=f"calibrate card vs CPU {ch}")
+        a, b = got[ch].astype(np.float64), want[ch].astype(np.float64)
+        errs[ch] = float((np.abs(a - b) / np.abs(b)).max())
+    fresh = cal._envelope(got, obs, int(committed.meta["discard"]))
+    print(f"[{card}] calibrate: {REPLAY_WINDOW} graphed steps = the eager "
+          f"loop bit for bit; the fixture's {len(heat)} steps on the card "
+          f"in {card_s!r} s (CPU {cpu_s!r} s), card vs CPU max rel "
+          f"{errs} within rtol {CAL_STEP_RTOL}; fresh RMSEs {fresh} beside "
+          f"the committed envelope {committed.envelope}")
+    t = time.perf_counter()
+    fit = cal.calibrate(cfg, heat, dt, wb, obs)
+    fit_s = time.perf_counter() - t
+    errs = {n: abs(v - float(z[f"true_{n}"])) / float(z[f"true_{n}"])
+            for n, v in fit.params.items()}
+    print(f"[{card}] calibrate: whole-fixture fit in {fit_s!r} s, "
+          f"{fit.meta['rollouts']} rollouts (nfev {fit.meta['nfev']}), "
+          f"{fit_s / fit.meta['rollouts']!r} s a rollout; params "
+          f"{fit.params}, relative error to the truth {errs}; envelope "
+          f"{fit.envelope}")
+    if sorted(errs) != sorted(cal.DEFAULT_FIT) or \
+            max(errs.values()) > CAL_RECOVERY:
+        raise SystemExit(f"calibrate: the fit missed the truth: {errs}")
+    out = tmp / "fitted.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.simulate", "calibrate",
+            "--telemetry", str(CAL_DIR / "telemetry.npz")]
+    for args, label in ((["--out", str(out)], "fit"),
+                        (["--check", str(out)], "check")):
+        t = time.perf_counter()
+        proc = subprocess.run(base + args, cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0 or (label == "check" and
+                                    "envelope holds" not in proc.stdout):
+            raise SystemExit(f"calibrate CLI {label} exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+        print(f"[{card}] simulate calibrate {' '.join(args[:1])}: exit 0 in "
+              f"{wall!r} s; " + "; ".join(ln.strip() for ln in
+                                          proc.stdout.splitlines()))
+    cli_fit = cal.FittedParams.load(out)
+    for n, v in cli_fit.params.items():
+        if abs(v - float(z[f"true_{n}"])) > CAL_RECOVERY * float(
+                z[f"true_{n}"]):
+            raise SystemExit(f"calibrate CLI: {n} = {v} misses the truth")
+
+def small_replay_reference(card):
+    """Replay with the event layer on the card against the CPU: the SWF
+    trace tests/data/pm100_small.swf (read with numpy alone) with a seeded
+    measured channel, compact time, on Marconi100 scaled to 64 nodes, its
+    busiest hour moved to t = 0; the reference's kill scenario."""
+    system = get_system("marconi100").scaled(64)
+    js = swf.read_swf(str(ROOT / "tests" / "data" / "pm100_small.swf"))
+    grid = np.unique(js.rec_start)
+    busy = [int(js.nodes[(js.rec_start <= t) &
+                         (js.rec_start + js.wall > t)].sum()) for t in grid]
+    shift = float(grid[int(np.argmax(busy))]) - 1800.0
+    js.submit, js.rec_start = js.submit - shift, js.rec_start - shift
+    js.power_profile = measured_channel(js, system.prof_dt, REPLAY_SEED)
+    js.assign_prepop_placement(0.0, system.n_nodes)
+    table = js.to_table(compact_time=True, replay_power=True)
+    scens = [T.Scenario.make("fcfs", "easy", **KILL),
+             T.Scenario.make("replay", "none"),
+             T.Scenario.make("sjf", "first-fit", setpoint_delta_c=2.0)]
+    t1 = 120 * system.dt
+    fg, _ = card_vs_cpu("small replay reference", system, table, scens,
+                        events=EventConfig(), t1=t1, num_accounts=64)
+    killed = fg.events.jobs_killed.tolist()
+    if killed[0] < 1:
+        raise SystemExit(f"small replay reference killed no job: {killed}")
+    print(f"[{card}] small replay reference (pm100_small.swf, marconi100 "
+          f"x64, {int((table.power_profile >= 0).any(1).sum())} of "
+          f"{len(js)} jobs measured, 3 scenarios, 120 steps, failures): card "
+          f"matches the CPU engine, schedules exact, floats and event state "
+          f"within 1e-4; jobs killed {killed}")
 
 # ---------------------------------------------------------------------------
 # The LM serving path's kernels: flash attention, WKV, SSD.
@@ -1979,6 +2320,22 @@ def main():
     elapsed("wire and the serve subcommand")
     fugaku_path(card)
     elapsed("fugaku-sweep-2h")
+    with tempfile.TemporaryDirectory(prefix="replay") as tmp:
+        tmp = pathlib.Path(tmp)
+        npz, wx = replay_path(card, tmp)
+        elapsed("frontier-replay-6h")
+        replay_cli(card, npz, wx, tmp)
+        elapsed("the replay CLI")
+        calibrate_path(card, tmp)
+        elapsed("calibration")
+    small_replay_reference(card)
+    elapsed("the small replay reference")
+    loaded = sorted(m for m in ("pandas", "pyarrow") if m in sys.modules)
+    if loaded:
+        raise SystemExit(f"the trace and calibration phases imported "
+                         f"{loaded}: the card's path must need neither")
+    print(f"trace phases imported neither pandas nor pyarrow (pandas "
+          f"installed here: {importlib.util.find_spec('pandas') is not None})")
     serve_path(card, lm)
     elapsed("LM serving")
     small_reference()

@@ -6,8 +6,9 @@ is a Python loop over steps, and every Pallas TPU kernel runs as a CUDA
 kernel written for Hopper (``kernels/*/csrc``): the node->CDU cooling and
 group-power reductions of the engine, and the flash attention, chunked
 WKV and chunked SSD of the LM zoo's serving path (``models``). The
-package imports ``torch`` and ``numpy`` only: nothing from JAX or from
-``repro``.
+package imports ``torch`` and ``numpy`` (and, inside the functions that
+need them, scipy for calibration's fit and pandas for CSV and parquet
+traces): nothing from JAX or from ``repro``.
 """
 import torch
 

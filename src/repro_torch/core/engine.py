@@ -86,6 +86,9 @@ def init_state(system: SystemConfig, table: T.JobTable, t0: float,
     """
     dev = table.submit.device
     J = table.num_jobs
+    # int32 in a compact table, as in the reference (sentinel + wall stays
+    # far past any window); every compare and ``where`` below meets the
+    # float32 window in float32, where whole seconds below 2^24 are exact
     rec_end = table.rec_start + table.wall
     jstate = torch.full((J,), T.PENDING, dtype=torch.int32, device=dev)
 

@@ -43,7 +43,10 @@ def summarize(system: SystemConfig, table: T.JobTable, final: T.SimState,
     done = _np(final.jstate == T.DONE)
     start = _np(final.start)
     end = _np(final.end)
-    submit = _np(table.submit)
+    # float32 whatever the column's type: an int32 (compact) column would
+    # promote the wait and turnaround to float64 in numpy, and a compact
+    # run's summary then differ from the float32 run's
+    submit = _np(table.submit, np.float32)
     nodes = _np(table.nodes).astype(np.float64)
     prio = _np(table.priority).astype(np.float64)
     jenergy = _np(final.jenergy).astype(np.float64)

@@ -151,12 +151,18 @@ def _refuse(m: Mapping, what: str, absent=(), neutral=None):
 class JobTable:
     """Fixed-size (padded) job table, shared by every scenario. Shapes [J].
 
-    Times are absolute seconds (float32) relative to the dataset origin.
+    Times are absolute seconds relative to the dataset origin: float32,
+    or int32 in a compact table (``JobSet.to_table(compact_time=True)``:
+    whole seconds below 2^24, a 2^30 sentinel for +inf), which the engine
+    meets with float32 only in that exact range.
     ``power_prof``/``util_prof`` are per-node traces sampled at
     ``SystemConfig.prof_dt`` (P == 1 for scalar-only datasets); missing
     samples are last-observation-carried-forward by clamping the profile
-    index (paper §3.2.2). The JAX table's optional ``ml_basis`` and
-    ``power_profile`` channels belong to later slices of the port.
+    index (paper §3.2.2). ``power_profile`` is the measured-power replay
+    channel (``repro_torch.traces``): recorded per-node watts on the same
+    grid, played back in place of the model wherever a sample is >= 0;
+    None turns replay off. The JAX table's ``ml_basis`` belongs to a
+    later slice of the port.
     """
     submit: torch.Tensor       # f32[J] submit time
     limit: torch.Tensor        # f32[J] requested walltime (s)
@@ -170,6 +176,7 @@ class JobTable:
     power_prof: torch.Tensor   # f32[J, P] per-node power trace (W)
     util_prof: torch.Tensor    # f32[J, P] utilization trace in [0, 1]
     valid: torch.Tensor        # bool[J] padding mask
+    power_profile: torch.Tensor | None = None  # f32[J, Q] measured W, or None
 
     @property
     def num_jobs(self) -> int:
@@ -185,7 +192,7 @@ class JobTable:
     @staticmethod
     def from_arrays(m: Mapping, device="cpu") -> "JobTable":
         """Build from the JAX ``JobTable``'s leaves (numpy, by field name)."""
-        _refuse(m, "JobTable", absent=("ml_basis", "power_profile"))
+        _refuse(m, "JobTable", absent=("ml_basis",))
         return _from_arrays(JobTable, m, device, batch=False)
 
 

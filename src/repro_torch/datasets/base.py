@@ -3,9 +3,10 @@
 The port's copy of ``repro.datasets.base``: a ``JobSet`` is a numpy
 struct-of-arrays (SWF-style fields plus power/trace channels) and
 ``to_table`` pads and packs it into the fixed-shape tensor ``JobTable``
-the engine consumes. Times stay float32 seconds (the JAX package's
-``compact_time`` int32 encoding and its measured-power replay channel
-belong to later slices of the port).
+the engine consumes, with the JAX package's ``compact_time`` int32 time
+columns and its measured-power replay channel. A ``JobSet`` may carry
+the JAX package's ML scoring basis (a trace NPZ written there holds
+it), but the port's table refuses it: the ML layer is not ported.
 """
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import types as T
+
+# far past any simulation window, exactly representable in both int32 and
+# float32: the +inf of a compact (int32) time column
+TIME_SENTINEL = np.int64(1) << 30
 
 
 @dataclass
@@ -36,6 +41,12 @@ class JobSet:
     util_prof: np.ndarray    # f32[J, P] in [0,1]
     first_node: np.ndarray | None = None  # i32[J], -1 unknown
     score: np.ndarray | None = None       # f32[J] baked ML/external score
+    ml_basis: np.ndarray | None = None    # f32[J, K] ML scoring basis
+    #   (carried through trace NPZs; ``to_table`` refuses it)
+    power_profile: np.ndarray | None = None  # f32[J, Q] measured per-node W
+    #   (repro_torch.traces telemetry replay: negative samples mean "no
+    #    measurement" — those jobs fall back to ``power_prof``; the field
+    #    only reaches the table via to_table(replay_power=True))
     name: str = "jobset"
 
     def __len__(self) -> int:
@@ -57,10 +68,32 @@ class JobSet:
                 cursor += need
         self.first_node = first
 
-    def to_table(self, pad_to: int | None = None) -> T.JobTable:
+    def to_table(self, pad_to: int | None = None,
+                 compact_time: bool = False,
+                 replay_power: bool = False) -> T.JobTable:
         """Pad and pack into the fixed-shape ``JobTable`` (on the CPU; the
         engine moves it to its device): times -> f32 s, power -> f32 W,
-        counts -> i32. Padded rows are marked invalid."""
+        counts -> i32. Padded rows are marked invalid.
+
+        ``compact_time=True`` narrows the time columns (submit / limit /
+        wall / rec_start) from float32 to int32 when every value is a
+        whole second below 2^24 (the SWF contract and the f32-exact
+        integer range), with non-finite entries (and the inf pad fill)
+        mapped to a 2^30-second sentinel that every window test
+        classifies exactly like +inf. A column that is fractional or too
+        large stays float32. The engine meets int32 with float32 only in
+        that exact range, so a compact run equals the float32 run bit for
+        bit.
+
+        ``replay_power=True`` carries the measured ``power_profile``
+        channel (repro_torch.traces telemetry) into the table, padded
+        with the -1 "no measurement" sentinel so padded rows, like
+        profile-less jobs, fall back to the ``power_prof`` model. Off by
+        default: the table's ``power_profile`` is then None and the power
+        model runs as before. Requires the JobSet to carry measurements."""
+        if self.ml_basis is not None:
+            raise NotImplementedError("JobSet.ml_basis: the ML scoring "
+                                      "layer is not ported yet")
         J = len(self)
         Jp = pad_to or J
         if Jp < J:
@@ -72,27 +105,50 @@ class JobSet:
             out[:J] = x
             return torch.from_numpy(out)
 
-        def pad2(x, fill, dtype):
-            out = np.full((Jp, P), fill, dtype)
+        def pad_time(x, fill):
+            if compact_time:
+                a = np.asarray(x, np.float64)
+                finite = np.isfinite(a)
+                vals = a[finite]
+                if vals.size == 0 or (np.all(vals == np.round(vals)) and
+                                      np.all(np.abs(vals) < (1 << 24))):
+                    out = np.full((Jp,), TIME_SENTINEL, np.int32)
+                    out[:J] = np.where(finite, a, float(TIME_SENTINEL))
+                    if np.isfinite(fill):
+                        out[J:] = np.int32(fill)
+                    return torch.from_numpy(out)
+            return pad1(x, fill, np.float32)
+
+        def pad2(x, fill, width=P):
+            out = np.full((Jp, width), fill, np.float32)
             out[:J] = x
             return torch.from_numpy(out)
 
         first = self.first_node if self.first_node is not None else \
             np.full(J, -1, np.int64)
         score = self.score if self.score is not None else np.zeros(J)
+        measured = None
+        if replay_power:
+            if self.power_profile is None:
+                raise ValueError(
+                    "replay_power=True but this JobSet carries no measured "
+                    "power_profile (load one via repro_torch.traces)")
+            measured = pad2(self.power_profile, -1.0,
+                            width=self.power_profile.shape[1])
         valid = np.zeros((Jp,), bool)
         valid[:J] = True
         return T.JobTable(
-            submit=pad1(self.submit, np.inf, np.float32),
-            limit=pad1(self.limit, 1.0, np.float32),
-            wall=pad1(self.wall, 1.0, np.float32),
+            submit=pad_time(self.submit, np.inf),
+            limit=pad_time(self.limit, 1.0),
+            wall=pad_time(self.wall, 1.0),
             nodes=pad1(self.nodes, 1, np.int32),
             priority=pad1(self.priority, 0.0, np.float32),
             account=pad1(self.account, 0, np.int32),
-            rec_start=pad1(self.rec_start, np.inf, np.float32),
+            rec_start=pad_time(self.rec_start, np.inf),
             first_node=pad1(first, -1, np.int32),
             score=pad1(score, 0.0, np.float32),
-            power_prof=pad2(self.power_prof, 0.0, np.float32),
-            util_prof=pad2(self.util_prof, 0.0, np.float32),
+            power_prof=pad2(self.power_prof, 0.0),
+            util_prof=pad2(self.util_prof, 0.0),
             valid=torch.from_numpy(valid),
+            power_profile=measured,
         )

@@ -1,12 +1,14 @@
 """Per-system synthetic dataloaders (paper §2.2 / Table 1, CLI ``--system``).
 
-The port's copy of the synthetic loaders of ``repro.datasets.loaders``:
-the same arguments give the same ``JobSet`` in both packages. PM100 and
-Frontier carry per-job power *traces* (20 s / 15 s); F-Data, LAST and
-Cirou's Adastra set carry scalar summaries only (trace_len == 1). Real
-trace ingestion belongs to a later slice of the port.
+The port's copy of ``repro.datasets.loaders``: the same arguments give
+the same ``JobSet`` in both packages. PM100 and Frontier carry per-job
+power *traces* (20 s / 15 s); F-Data, LAST and Cirou's Adastra set carry
+scalar summaries only (trace_len == 1). ``load_trace`` ingests a real
+trace (``repro_torch.traces``) behind the same interface.
 """
 from __future__ import annotations
+
+import pathlib
 
 from repro_torch.datasets.base import JobSet
 from repro_torch.datasets.synthetic import WorkloadSpec, generate
@@ -83,3 +85,37 @@ def load(system_name: str, **kw) -> JobSet:
     """Dispatch to the per-system loader (CLI ``--system``); ``kw`` is
     forwarded (commonly ``n_jobs``, ``days``, ``seed``)."""
     return LOADERS[system_name](**kw)
+
+
+def load_trace(paths, prof_dt: float = 20.0,
+               cache_dir: str | None = None) -> JobSet:
+    """Ingest a *real* trace (CLI ``--trace``) behind the same ``JobSet``
+    interface the synthetic loaders produce (repro_torch.traces).
+
+    ``paths`` is one or two paths, RAPS-style:
+      - ``[job_table.parquet|.csv]`` — a published job table (PM100
+        column mapping by default; needs pandas);
+      - ``[trace.npz]`` — a previously cached parse (fast restart; numpy
+        only);
+      - ``[joblive_dir]`` or ``[joblive_dir, jobprofile_dir]`` — raw
+        scheduler + power telemetry dumps; with a jobprofile the jobs
+        carry measured power for ``to_table(replay_power=True)``.
+    """
+    from repro_torch import traces
+    if not 1 <= len(paths) <= 2:
+        raise traces.TraceError(f"--trace wants 1 or 2 paths, got "
+                                f"{len(paths)}")
+    first = pathlib.Path(paths[0])
+    if len(paths) == 2:
+        return traces.load_telemetry(first, paths[1], prof_dt=prof_dt,
+                                     cache_dir=cache_dir)
+    if first.suffix in (".parquet", ".csv") and first.is_file():
+        return traces.read_job_table(first)
+    if first.suffix == ".npz":
+        return traces.jobset_from_npz(first)
+    if first.is_dir():
+        return traces.load_telemetry(first, None, prof_dt=prof_dt,
+                                     cache_dir=cache_dir)
+    raise traces.TraceError(f"cannot ingest trace {first}: want a "
+                            f".parquet/.csv job table, a cached .npz, or "
+                            f"a joblive directory")

@@ -19,6 +19,8 @@ class CduParams(NamedTuple):
     """Static scalars of the CDU loop update (units: SI, °C)."""
     cp_j_kg_k: float      # water specific heat (J/(kg·K))
     ua_w_k: float         # facility HX conductance per group (W/K)
+    #   (ua_w_k, tau_hx_s and tau_valve_s may be 0-dim float32 tensors in
+    #    the plain version: calibration candidates; the kernels take floats)
     dt: float             # engine step (s)
     tau_hx_s: float       # supply-loop relaxation time constant (s)
     tau_valve_s: float    # valve/flow slew time constant (s)
@@ -107,10 +109,20 @@ def _per_group(x, q: torch.Tensor) -> torch.Tensor:
     return x if x.ndim == q.ndim else x[..., None]
 
 
-def slew_factors(p: CduParams) -> tuple[float, float]:
+def slew_factors(p: CduParams) -> tuple:
     """(a_valve, a_hx): the per-step slew factors, clipped at 1 so a coarse
-    engine dt snaps to the target instead of overshooting it."""
-    return min(p.dt / p.tau_valve_s, 1.0), min(p.dt / p.tau_hx_s, 1.0)
+    engine dt snaps to the target instead of overshooting it.
+
+    The engine's time constants are Python floats: each factor is then a
+    Python float formed in float64, as the kernels take it. A time constant
+    that is a 0-dim float32 tensor (a calibration candidate,
+    ``repro_torch.traces.calibrate``) gives a float32 tensor, formed as the
+    reference's traced ``jnp.minimum(dt / tau, 1.0)`` forms it."""
+    def slew(tau):
+        if isinstance(tau, torch.Tensor):
+            return torch.clamp(p.dt / tau, max=1.0)
+        return min(p.dt / tau, 1.0)
+    return slew(p.tau_valve_s), slew(p.tau_hx_s)
 
 
 def cdu_update_ref(q: torch.Tensor, t_supply: torch.Tensor,

@@ -17,10 +17,18 @@ or unix:/path), --quiet and --json; --profile DIR records a
 it as a Chrome trace into DIR. Runs on the card unless ``--device cpu``
 is given.
 
+Real traces (``repro_torch.traces``, docs/datasets.md): ``--trace``
+ingests a published job table, a cached trace NPZ or a joblive/jobprofile
+telemetry dump in place of the synthetic dataset (``--trace-cache`` names
+the NPZ cache directory), ``--replay-power`` plays measured power back
+verbatim, ``--weather-trace`` drives the cooling tower from recorded
+ambient conditions. The manifest records each trace's content digest.
+
 Subcommand ``serve`` runs the twin as a persistent service
-(``repro_torch.serve.cli``, docs/serving.md). The JAX CLI's ``train`` and
-``calibrate`` subcommands and its --weather-trace, --trace and external
-scheduler flags wait for the port of their layers.
+(``repro_torch.serve.cli``, docs/serving.md); ``calibrate`` fits the
+cooling-plant parameters to recorded facility telemetry
+(``repro_torch.traces.calibrate``). The JAX CLI's ``train`` subcommand
+and its external scheduler flags wait for the port of their layers.
 """
 from __future__ import annotations
 
@@ -105,8 +113,19 @@ def _failure_kwargs(args, t0):
 
 
 # subcommands of the JAX CLI that wait for the port of their layer
-UNPORTED = {"train": "ES policy training (ROADMAP item 13)",
-            "calibrate": "cooling-plant calibration (ROADMAP item 12)"}
+UNPORTED = {"train": "ES policy training (ROADMAP item 13)"}
+
+
+def _trace_digests(args) -> dict:
+    """Content digests of the real traces feeding this run, for the
+    manifest: empty when the run is fully synthetic."""
+    from repro_torch.traces import source_digest
+    out = {}
+    if args.trace:
+        out["trace_digest"] = source_digest(*args.trace)
+    if args.weather_trace:
+        out["weather_trace_digest"] = source_digest(args.weather_trace)
+    return out
 
 
 def main(argv=None):
@@ -116,6 +135,11 @@ def main(argv=None):
         # persistent session with snapshot and fork over a socket
         from repro_torch.serve import cli as serve_cli
         return serve_cli.main(argv[1:])
+    if argv[:1] == ["calibrate"]:
+        # cooling-plant calibration against recorded telemetry
+        # (repro_torch.traces.calibrate, docs/datasets.md)
+        from repro_torch.traces import calibrate as calibrate_cli
+        return calibrate_cli.main(argv[1:])
     if argv[:1] and argv[0] in UNPORTED:
         raise SystemExit(f"simulate {argv[0]}: {UNPORTED[argv[0]]} is not "
                          f"ported to repro_torch yet")
@@ -129,6 +153,23 @@ def main(argv=None):
     ap.add_argument("-t", "--time", default="6h", type=str,
                     help="simulated duration (s/m/h/d suffix)")
     ap.add_argument("--seed", type=int, default=0)
+    # real-trace ingestion (repro_torch.traces, docs/datasets.md)
+    ap.add_argument("--trace", nargs="+", default=None, metavar="PATH",
+                    help="replace the synthetic --system dataset with a "
+                         "real trace: one job table (.parquet/.csv), one "
+                         "cached trace .npz, or a joblive dir followed by "
+                         "a jobprofile dir (RAPS-style telemetry)")
+    ap.add_argument("--trace-cache", default=None, metavar="DIR",
+                    help="content-addressed NPZ cache directory for "
+                         "parsed telemetry (repeat runs skip the CSVs)")
+    ap.add_argument("--replay-power", action="store_true",
+                    help="replay measured per-node power profiles from "
+                         "the trace instead of the power model (jobs "
+                         "without a measurement keep the model)")
+    ap.add_argument("--weather-trace", default=None, metavar="FILE",
+                    help="measured weather CSV/NPZ (timestamp + wet-bulb "
+                         "or dry-bulb/RH) driving the cooling tower "
+                         "ambient (repro_torch.traces.weather)")
     ap.add_argument("--policy", default="replay")
     ap.add_argument("--backfill", default="none")
     ap.add_argument("--sweep", nargs="*", default=None,
@@ -179,10 +220,20 @@ def main(argv=None):
     sys_ = build_system(args.system, args.scale, args.halls)
     t0, t1 = 0.0, _parse_time(args.time)
     days = max((t1 / 86400.0) * 1.25, 0.5)
-    js = loaders.load(args.system, n_jobs=args.jobs, days=days,
-                      seed=args.seed)
+    if args.trace:
+        js = loaders.load_trace(args.trace, prof_dt=sys_.prof_dt,
+                                cache_dir=args.trace_cache)
+    else:
+        js = loaders.load(args.system, n_jobs=args.jobs, days=days,
+                          seed=args.seed)
+    weather = None
+    if args.weather_trace:
+        from repro_torch.traces.weather import load_weather
+        weather = load_weather(args.weather_trace,
+                               int(round((t1 - t0) / sys_.dt)), sys_.dt,
+                               t0=t0)
     js.assign_prepop_placement(t0, sys_.n_nodes)
-    table = js.to_table()
+    table = js.to_table(replay_power=args.replay_power)
     fail_kw = _failure_kwargs(args, t0)
     events = signals = None
     if fail_kw:
@@ -204,10 +255,16 @@ def main(argv=None):
                       "failure_rate_per_day": args.failure_rate,
                       "failure_seed": args.failure_seed,
                       "dr_cap_mw": args.dr_cap_mw, "device": args.device,
+                      "trace": args.trace,
+                      "replay_power": args.replay_power,
+                      "weather_trace": args.weather_trace,
                       "t0_s": t0, "duration_s": t1 - t0},
             seed=args.seed, jobs=js,
             extra={"env_preset": launch_env.report(
-                "sweep" if args.sweep else "throughput")})
+                "sweep" if args.sweep else "throughput"),
+                # content digests pin exactly which trace bytes produced
+                # this run
+                **_trace_digests(args)})
         recorder.event("run_start")
     timer = obs.SpanTimer(listener=recorder.span_listener
                           if recorder else None)
@@ -215,7 +272,8 @@ def main(argv=None):
 
     wall0 = time.perf_counter()
     with obs.use(timer):
-        runs = _run(args, sys_, table, t0, t1, fail_kw, signals, events)
+        runs = _run(args, sys_, table, t0, t1, fail_kw, signals, events,
+                    weather)
     wall = time.perf_counter() - wall0
     if profiler is not None:
         profiler.stop()
@@ -265,9 +323,10 @@ def _start_profile(args):
     return prof
 
 
-def _run(args, sys_, table, t0, t1, fail_kw, signals, events):
+def _run(args, sys_, table, t0, t1, fail_kw, signals, events, weather):
     """One CLI invocation on the engine: a list of ((policy, backfill),
-    final, hist), one per scenario."""
+    final, hist), one per scenario. ``weather`` (a measured trace,
+    --weather-trace, or None) drives every scenario's towers."""
     if args.sweep or fail_kw:
         specs = [(p, b or "none") for p, _, b in
                  (s.partition(":") for s in args.sweep)] if args.sweep \
@@ -275,12 +334,13 @@ def _run(args, sys_, table, t0, t1, fail_kw, signals, events):
         finals, hists = eng.simulate_sweep(
             sys_, table, [T.Scenario.make(p, b, **fail_kw)
                           for p, b in specs], t0, t1,
-            signals=signals, events=events, device=args.device)
+            signals=signals, weather=weather, events=events,
+            device=args.device)
         return [(spec, T.row(finals, i), T.row(hists, i))
                 for i, spec in enumerate(specs)]
     final, hist = eng.simulate_static(sys_, table, args.policy,
                                       args.backfill, t0, t1,
-                                      device=args.device)
+                                      weather=weather, device=args.device)
     return [((args.policy, args.backfill), final, hist)]
 
 

@@ -5,6 +5,13 @@ Per-node IT power comes from the job's recorded per-node power trace
 forward for missing samples, or from a scalar per-job average (summary
 datasets: Fugaku, Lassen, Adastra). Idle nodes draw ``idle_node_w``.
 Batched over scenarios: per-job tensors are [S, J], per-node [S, N].
+
+Telemetry replay (``repro_torch.traces``): when the table carries a
+measured ``power_profile`` channel, jobs with a measurement play it back
+verbatim (the recorded sample at the job's work-time index) instead of
+the ``power_prof`` model, while profile-less jobs (negative sentinel
+rows) keep the model bit for bit. ``power_profile is None`` skips the
+gather.
 """
 from __future__ import annotations
 
@@ -24,12 +31,23 @@ def job_node_power_elapsed(table: JobTable, jstate: torch.Tensor,
     LOCF semantics (paper §3.2.2): the profile index is clamped into
     [0, P-1]. The index truncates toward zero like the reference's
     ``astype(int32)``.
+
+    Replay: a measured ``table.power_profile`` sample (the same work-time
+    index, clamped into its own width [0, Q-1]) overrides the model
+    wherever it is >= 0; the -1 sentinel marks "no measurement".
     """
     S, J = jstate.shape
-    P = table.prof_len
-    idx = torch.clamp((elapsed / prof_dt).to(torch.int32), 0, P - 1)
-    p = torch.gather(table.power_prof.expand(S, J, P), 2,
-                     idx.long().unsqueeze(-1)).squeeze(-1)
+    step = (elapsed / prof_dt).to(torch.int32)
+
+    def at(prof):                     # f32[J, W] -> f32[S, J] at ``step``
+        idx = torch.clamp(step, 0, prof.shape[1] - 1)
+        return torch.gather(prof.expand(S, J, prof.shape[1]), 2,
+                            idx.long().unsqueeze(-1)).squeeze(-1)
+
+    p = at(table.power_prof)
+    if table.power_profile is not None:
+        m = at(table.power_profile)
+        p = torch.where(m >= 0.0, m, p)
     return torch.where(jstate == T.RUNNING, p, 0.0)
 
 

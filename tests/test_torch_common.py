@@ -68,6 +68,20 @@ def assert_exact(want, got, what=""):
         f"{what}: differs at {np.argwhere(want != got)[:5].tolist()}"
 
 
+def assert_jobsets_equal(want, got, what=""):
+    """Two host ``JobSet``s (either package's) field for field: the same
+    fields, each array of the same dtype, shape and values, the same
+    ``None`` channels and name."""
+    names = [f.name for f in dataclasses.fields(want)]
+    assert names == [f.name for f in dataclasses.fields(got)], what
+    for name in names:
+        w, g = getattr(want, name), getattr(got, name)
+        if w is None or isinstance(w, str):
+            assert w == g, f"{what} {name}: {w!r} != {g!r}"
+        else:
+            assert_exact(w, np.asarray(g), f"{what} {name}")
+
+
 def assert_runs_match(want, got, rtol=1e-4, what="", atol=None):
     """A JAX engine run (final state, history) against the port's: the
     schedule (``jstate``, ``start``, ``end``, ``node_job``, ``free_count``)
@@ -188,15 +202,34 @@ def _imports(path):
             yield node.module
 
 
+def _module_level_imports(path):
+    """Imports a module runs when it is imported: its body's, not those
+    inside a function."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    names = {p.relative_to(ROOT / "src").as_posix() for p in files[:-1]}
+    assert {"repro_torch/traces/calibrate.py", "repro_torch/datasets/swf.py",
+            "repro_torch/traces/telemetry.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), \
                 f"{path.relative_to(ROOT)} imports {mod}"
+        # the card's path needs no pandas (nor pyarrow, nor scipy to
+        # import): they are imported only inside the functions that read
+        # a CSV or parquet file, or fit
+        for mod in _module_level_imports(path):
+            assert mod.split(".")[0] not in ("pandas", "pyarrow", "scipy"), \
+                f"{path.relative_to(ROOT)} imports {mod} when imported"
 
 
 def test_system_configs_are_copies():

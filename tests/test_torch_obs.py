@@ -386,7 +386,7 @@ def test_simulate_cli_profile_writes_a_chrome_trace(tmp_path, capsys):
     assert any(n and n.startswith("aten::") for n in names)
 
 
-@pytest.mark.parametrize("sub", ["train", "calibrate"])
+@pytest.mark.parametrize("sub", ["train"])
 def test_simulate_cli_refuses_unported_subcommands(sub):
     with pytest.raises(SystemExit, match="not ported"):
         tcli.main([sub, "--smoke"])
