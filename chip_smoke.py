@@ -60,6 +60,17 @@ through their entry points at full width and checks what comes out:
   eager loop bit for bit, the card against the CPU, a whole-fixture fit
   recovering the fixture's true parameters within 2 %, then
   ``simulate calibrate --out`` and ``--check`` as processes;
+* fig7's external schedulers (``repro_torch.core.external``) on Frontier
+  at full width with ``benchmarks/fig7_external.py``'s backlog (5,324
+  synthetic jobs over 15 days, load 0.9): FastSimLike's whole schedule
+  and the reference peer's (``tools/reference_peer.py`` through a
+  ``SubprocessPeer``) equal exactly; sequential mode replaying the first
+  24 h; plugin mode for 6 h in process and through the peer (binary
+  frames), equal bit for bit, and over NDJSON for the first hour;
+  ``external_step`` under frontier-grid-6h's signals for 1 h with a cap
+  that binds; one fused cooling launch a step without signals, one
+  group-power launch a step with them; then the CLI's ``--scheduler
+  fastsim`` and ``--external-cmd`` (plugin) as processes;
 * LM serving (``repro_torch.launch.serve_lm``) of qwen2.5-3b, rwkv6-7b
   and zamba2-7b at full width, one after another: 4 prompts of 512
   tokens and 16 greedy decode steps, whose prefills run the flash
@@ -68,8 +79,8 @@ through their entry points at full width and checks what comes out:
 
 and a small card-against-CPU check of each path (with weather and
 failures on, also of the event layer's draws; a small session too; the
-SWF fixture replayed with failures). The trace and calibration phases
-must not import pandas or pyarrow. Before the paths, each
+SWF fixture replayed with failures; plugin and sequential mode). The
+trace and calibration phases must not import pandas or pyarrow. Before the paths, each
 kernel is held to its plain version at the paths' shapes and ragged ones
 and timed (CUDA graph, eager, host enqueue, the launch floor; for the
 power-topology kernels also at Fugaku's width), and the power-topology
@@ -110,6 +121,7 @@ sys.path.insert(0, str(ROOT))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
+from repro_torch.core import external as ext  # noqa: E402
 from repro_torch.core import scheduler as sched  # noqa: E402
 from repro_torch.core import stats as stats_mod  # noqa: E402
 from repro_torch.core import transport as tr  # noqa: E402
@@ -1856,6 +1868,275 @@ def small_replay_reference(card):
           f"within 1e-4; jobs killed {killed}")
 
 # ---------------------------------------------------------------------------
+# fig7: external schedulers (repro_torch.core.external), on Frontier.
+# ---------------------------------------------------------------------------
+# benchmarks/fig7_external.py's workload: a synthetic Frontier backlog of
+# 5,324 jobs over 15 days (the paper's fig7 count), load 0.9
+FIG7_SPEC = dict(n_jobs=5324, duration_s=15 * 86400.0, load=0.9,
+                 trace_len=1, n_accounts=64, mean_wall_s=7200.0, seed=42)
+FIG7_SEQ_T1 = 24 * 3600.0    # the replayed window (cut from 15 days)
+FIG7_PLUGIN_T1 = 6 * 3600.0  # fig7_external.py's plugin window
+FIG7_NDJSON_T1 = 3600.0      # the NDJSON-pinned peer's window
+FIG7_GRID_T1 = 3600.0        # the grid external_step run
+FIG7_PEER = [sys.executable, str(ROOT / "tools" / "reference_peer.py")]
+PEER_HANDSHAKE_S = 300.0     # spawn + the peer's whole schedule + ack
+
+def fig7_case():
+    system = get_system("frontier")
+    return system, generate(system, WorkloadSpec(**FIG7_SPEC))
+
+def reaped(peer, label):
+    if peer._proc is not None or not peer.spawned or any(
+            p.returncode is None for p in peer.spawned):
+        raise SystemExit(f"{label}: a peer process was left unreaped")
+
+def hists_equal(a, b, label, n=None):
+    """Two plugin histories (dicts of numpy arrays) bit for bit, on the
+    first ``n`` steps of ``b`` when given."""
+    if set(a) != set(b):
+        raise SystemExit(f"{label}: history keys differ")
+    for k in a:
+        if not np.array_equal(a[k], b[k][:n] if n else b[k]):
+            raise SystemExit(f"{label}: channel {k!r} differs")
+
+def timed_polls(bridge):
+    """Record each ``bridge.poll``'s wall time (seconds) in a list."""
+    lat, poll = [], bridge.poll
+
+    def timed(t):
+        t0 = time.perf_counter()
+        out = poll(t)
+        lat.append(time.perf_counter() - t0)
+        return out
+    bridge.poll = timed
+    return lat
+
+def plugin_run(card, label, system, js, bridge, t1):
+    """Plugin mode on the card, counted: fused_cooling once a step."""
+    lat = timed_polls(bridge)
+    (final, hist, wall), _, launches = run_counted(
+        lambda: ext.run_plugin_mode(system, js, bridge, 0.0, t1))
+    n_steps = int(round(t1 / system.dt))
+    if launches["fused_cooling"] != n_steps or launches["group_power"] != 0:
+        raise SystemExit(f"{label}: {n_steps} steps launched {launches}")
+    check_run(label, final, T.StepRecord(**{
+        k: torch.from_numpy(v)[None] for k, v in hist.items()}), n_steps, 1)
+    st = bridge.stats()
+    print(f"[{card}] {label}: {n_steps} steps in {wall!r} s = "
+          f"{n_steps / wall!r} steps/s, {t1 / wall!r}x real time; launches "
+          f"{launches}; bridge polls {st['polls']}, poll p50 "
+          f"{float(np.median(lat)) * 1e3!r} ms, max {max(lat) * 1e3!r} ms, "
+          f"{sum(lat) / wall!r} of the wall in the poll; reconnects "
+          f"{st['reconnects']}; peer {st.get('peer')}")
+    return hist, launches
+
+def fig7_path(card):
+    """Sequential and plugin mode at Frontier's width on fig7's backlog,
+    the reference peer as a subprocess, and ``external_step`` on the
+    grid branch; returns the two kernels' launch counts of each run."""
+    system, js = fig7_case()
+    N, G = system.n_nodes, system.cooling.n_groups
+    print(f"fig7 path: frontier N={N} G={G} J={len(js)} over "
+          f"{FIG7_SPEC['duration_s'] / 86400.0:.0f} days, load "
+          f"{FIG7_SPEC['load']}")
+    # the reference peer's whole schedule equals FastSimLike's exactly
+    t = time.perf_counter()
+    fs = ext.FastSimLike(policy="fcfs", backfill="firstfit")
+    fs.reset(system, js, 0.0)
+    fs_s = time.perf_counter() - t
+    peer = tr.SubprocessPeer(cmd=FIG7_PEER, policy="fcfs",
+                             backfill="firstfit",
+                             handshake_timeout_s=PEER_HANDSHAKE_S)
+    try:
+        t = time.perf_counter()
+        peer.reset(system, js, 0.0)
+        remote = np.asarray(peer.start, np.float64)
+        peer_s = time.perf_counter() - t
+    finally:
+        peer.close()
+    reaped(peer, "fig7 schedule")
+    fin = np.isfinite(fs.start)
+    if not (np.array_equal(fin, np.isfinite(remote)) and
+            np.array_equal(fs.start[fin], remote[fin])):
+        raise SystemExit("fig7: the peer's schedule differs from "
+                         "FastSimLike's")
+    print(f"[{card}] fig7 schedule: FastSimLike {fs_s!r} s, the reference "
+          f"peer over the wire ({peer.stats()['wire']}) {peer_s!r} s; "
+          f"{int(fin.sum())} of {len(js)} jobs started, equal exactly")
+    counts = {}
+
+    # sequential: FastSimLike schedules the whole backlog, the twin replays
+    # the first FIG7_SEQ_T1 of it
+    n_steps = int(round(FIG7_SEQ_T1 / system.dt))
+    seq = lambda: ext.run_sequential_mode(
+        system, js, ext.FastSimLike(policy="fcfs", backfill="firstfit"),
+        0.0, FIG7_SEQ_T1)
+    (final, hist), wall, launches = run_counted(seq)
+    counts["sequential"] = launches
+    if launches["fused_cooling"] != n_steps or launches["group_power"] != 0:
+        raise SystemExit(f"fig7 sequential: {n_steps} steps launched "
+                         f"{launches}")
+    check_run("fig7 sequential", final, T.tree_map(lambda x: x[None], hist),
+              n_steps, 1)
+    s = stats_mod.summarize(system, js.to_table(), final, hist)
+    if s["jobs_completed"] < 1:
+        raise SystemExit(f"fig7 sequential completed no job: {s}")
+    print(f"[{card}] fig7 sequential ({FIG7_SEQ_T1 / 3600:.0f} h replayed, "
+          f"the schedule included): {n_steps} steps in {wall!r} s = "
+          f"{n_steps / wall!r} steps/s, {FIG7_SEQ_T1 / wall!r}x real time; "
+          f"launches {launches}; jobs_completed={s['jobs_completed']:.0f} "
+          f"avg_util={s['avg_util']:.4f} avg_pue={s['avg_pue']:.5f}")
+    del final, hist
+
+    # plugin: in process, then the reference peer over auto (binary) and
+    # NDJSON frames; every channel bit for bit
+    in_proc = ext.SchedulerBridge(ext.FastSimLike(policy="fcfs",
+                                                  backfill="firstfit"))
+    h_in, counts["plugin"] = plugin_run(card, "fig7 plugin, in process",
+                                        system, js, in_proc, FIG7_PLUGIN_T1)
+    for wire, t1, expect in (("auto", FIG7_PLUGIN_T1, "binary"),
+                             ("ndjson", FIG7_NDJSON_T1, "ndjson")):
+        peer = tr.SubprocessPeer(cmd=FIG7_PEER, wire=wire,
+                                 handshake_timeout_s=PEER_HANDSHAKE_S)
+        try:
+            h, counts[f"plugin {wire}"] = plugin_run(
+                card, f"fig7 plugin, subprocess peer wire={wire}", system,
+                js, ext.SchedulerBridge(peer), t1)
+            got = peer.stats()["wire"]
+        finally:
+            peer.close()
+        reaped(peer, f"fig7 plugin wire={wire}")
+        if got != expect:
+            raise SystemExit(f"fig7 plugin: wire={wire} negotiated {got}")
+        hists_equal(h, h_in, f"fig7 plugin wire={wire} vs in process",
+                    n=int(round(t1 / system.dt)))
+    print(f"fig7 plugin: the peer's rows over binary "
+          f"({FIG7_PLUGIN_T1 / 3600:.0f} h) and NDJSON "
+          f"({FIG7_NDJSON_T1 / 3600:.0f} h) equal the in-process rows bit "
+          f"for bit; every peer process reaped")
+
+    # external_step on the grid branch: frontier-grid-6h's signals, a cap
+    # scaled to bind halfway between the idle floor and this hour's peak
+    gsys = dataclasses.replace(system, grid=dataclasses.replace(
+        system.grid, c_min=0.05))
+    n_steps = int(round(FIG7_GRID_T1 / system.dt))
+    peak_it = N * system.power.peak_node_w
+    sig = gsig.synthetic_signals(gsys.grid, n_steps, system.dt,
+                                 t0=GRID_T0_CLOCK, seed=11,
+                                 cap_base_w=0.9 * peak_it,
+                                 cap_peak_w=0.55 * peak_it)
+    floor = N * system.power.idle_node_w
+    p_hour = h_in["power_it"][:n_steps]
+    cap_scale = (floor + 0.5 * (float(p_hour.max()) - floor)) / \
+        float(sig.cap_w.max())
+    counts["grid"], rows, wall = grid_external(gsys, js, sig, cap_scale,
+                                               n_steps)
+    over = rows.power_it - rows.cap_w
+    throttled = int((rows.throttle_frac > 0).sum())
+    if counts["grid"]["group_power"] != n_steps or \
+            counts["grid"]["fused_cooling"] != 0:
+        raise SystemExit(f"fig7 grid: {n_steps} steps launched "
+                         f"{counts['grid']}")
+    if throttled < 1 or not (over <= 1.0).all():
+        raise SystemExit(f"fig7 grid: {throttled} throttled steps, largest "
+                         f"excess over the cap {float(over.max())!r} W")
+    print(f"[{card}] fig7 external_step, grid branch (1 h, cap_scale "
+          f"{cap_scale!r}): {n_steps} steps in {wall!r} s = "
+          f"{n_steps / wall!r} steps/s, launches {counts['grid']}; "
+          f"{throttled} throttled steps, max throttle_frac "
+          f"{float(rows.throttle_frac.max())!r}, power_it <= cap_w + 1 W "
+          f"at every step (largest excess {float(over.max())!r} W)")
+    return counts
+
+def grid_external(system, js, sig, cap_scale, n_steps):
+    """``external_step`` with grid signals, placements from FastSimLike,
+    counted; returns (launches, StepRecord, wall seconds)."""
+    table = js.to_table().to(DEV)
+    sig = sig.to(DEV)
+    scen = T.tree_map(lambda x: x.to(DEV), T.stack_scenarios(
+        [T.Scenario.make("replay", cap_scale=cap_scale)]))
+    fs = ext.FastSimLike(policy="fcfs", backfill="firstfit")
+    fs.reset(system, js, 0.0)
+
+    def run():
+        st = eng._fresh(system, table, 1, 0.0, n_steps * system.dt, None,
+                        64, None, DEV)
+        rows, running = [], set()
+        for i in range(n_steps):
+            new = sorted(set(fs.running_at(i * system.dt).tolist()) -
+                         running)[:64]
+            st, rec = eng.external_step(system, table, st, new, signals=sig,
+                                        scen=scen)
+            running = set(torch.nonzero(st.jstate[0] == T.RUNNING)
+                          .flatten().tolist())
+            rows.append(rec)
+        return T.row(eng._history(rows), 0)
+    rows, wall, launches = run_counted(run)
+    return launches, rows, wall
+
+def small_external_reference(card):
+    """Plugin and sequential mode on the 64-node test system, on the card
+    against the port's CPU path: schedules exact, floats within 1e-4."""
+    system = get_system("frontier").scaled(64)
+    js = generate(system, WorkloadSpec(n_jobs=40, duration_s=2 * 3600.0,
+                                       load=1.2, trace_len=4, seed=3))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        final, hist, _ = ext.run_plugin_mode(
+            system, js, ext.FastSimLike(policy="sjf", backfill="firstfit"),
+            0.0, 3600.0, device=dev)
+        sf, sh = ext.run_sequential_mode(system, js, ext.FastSimLike(), 0.0,
+                                         3600.0, device=dev)
+        runs[dev] = (final, T.StepRecord(**{
+            k: torch.from_numpy(v) for k, v in hist.items()}), sf, sh)
+    for i, label in ((0, "plugin"), (2, "sequential")):
+        (fg, hg), (fc, hc) = runs["cuda"][i:i + 2], runs["cpu"][i:i + 2]
+        for name in ("jstate", "start", "end", "node_job"):
+            if not torch.equal(getattr(fg, name).cpu(), getattr(fc, name)):
+                raise SystemExit(f"small external {label}: card and CPU "
+                                 f"disagree on {name}")
+        for name, a in vars(hc).items():
+            torch.testing.assert_close(
+                getattr(hg, name).cpu(), a, rtol=1e-4, atol=1e-4,
+                msg=lambda m: f"small external {label} {name}: {m}")
+    print(f"[{card}] small external reference (frontier x64, 40 jobs, 1 h): "
+          f"plugin and sequential mode on the card match the CPU path, "
+          f"schedules exact, floats within 1e-4")
+
+def external_cli(card):
+    """The CLI's external flags on the card, as processes, 1 h each:
+    ``--scheduler fastsim`` and the reference peer in plugin mode."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.simulate", "--system",
+            "frontier", "-t", "1h", "--quiet", "--json"]
+    peer = " ".join(FIG7_PEER)
+    for label, extra in (("--scheduler fastsim", ["--scheduler", "fastsim"]),
+                         ("--external-cmd (plugin)",
+                          ["--external-cmd", peer, "--external-mode",
+                           "plugin"])):
+        t = time.perf_counter()
+        proc = subprocess.run(base + extra, cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise SystemExit(f"CLI {label} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+        doc = json.loads(proc.stdout)
+        runs = {k: v for k, v in doc.items() if k != "bridge"}
+        (name, s), = runs.items()
+        if not (0.0 < s["avg_util"] <= 1.0 and 1.0 < s["avg_pue"] < 1.5):
+            raise SystemExit(f"CLI {label}: summary {s}")
+        bridge = doc.get("bridge")
+        if ("plugin" in label) != (bridge is not None) or (
+                bridge and bridge["polls"] != 240):
+            raise SystemExit(f"CLI {label}: bridge {bridge}")
+        print(f"[{card}] CLI {label} (frontier, 1 h) exited 0 in {wall!r} "
+              f"s: {name} avg_util={s['avg_util']:.4f} "
+              f"avg_pue={s['avg_pue']:.5f}"
+              + (f"; bridge polls {bridge['polls']}, peer wire "
+                 f"{bridge['peer']['wire']}" if bridge else ""))
+
+# ---------------------------------------------------------------------------
 # The LM serving path's kernels: flash attention, WKV, SSD.
 # ---------------------------------------------------------------------------
 # Tolerances of kernel vs plain version on the card (rtol = atol). float32:
@@ -2330,6 +2611,10 @@ def main():
         elapsed("calibration")
     small_replay_reference(card)
     elapsed("the small replay reference")
+    fig7 = fig7_path(card)
+    elapsed("fig7")
+    external_cli(card)
+    elapsed("the external CLI")
     loaded = sorted(m for m in ("pandas", "pyarrow") if m in sys.modules)
     if loaded:
         raise SystemExit(f"the trace and calibration phases imported "
@@ -2343,6 +2628,10 @@ def main():
     small_events_reference(card)
     small_session_reference(card)
     small_lm_reference()
+    small_external_reference(card)
+    print("fig7 launches: " + "; ".join(
+        f"{k}: fused_cooling {v['fused_cooling']}, group_power "
+        f"{v['group_power']}" for k, v in fig7.items()))
     print(f"session launches: group_power {session['group_power']}, "
           f"fused_cooling {session['fused_cooling']}; wire launches: "
           f"group_power {wire['group_power']}, fused_cooling "

@@ -42,6 +42,10 @@ compiles nothing, so it has none of the reference's ``engine.lower`` and
 the scan runs exactly as without the observability layer: no span, no
 synchronisation.
 
+``external_step`` is the paper's §4.2 plugin mode: an event-based
+external scheduler decides the placements between steps
+(``repro_torch.core.external`` drives it).
+
 Entry points (``simulate``, ``simulate_static``, ``simulate_sweep`` and
 the segment functions) run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card a CUDA request raises.
@@ -310,6 +314,99 @@ def engine_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
                              proj_pw=pmodel.system_it_power(node_pw), dr=dr)
     return _tick(system, table, st, thermal, scen.setpoint_delta_c,
                  scen.cells_offline, grid, cap_active, wx, ev_now)
+
+
+# ---------------------------------------------------------------------------
+# Plugin mode for external event-based schedulers (paper §4.2).
+# ---------------------------------------------------------------------------
+def external_step(system: SystemConfig, table: T.JobTable, st: T.SimState,
+                  place_ids, signals: gsig.GridSignals | None = None,
+                  weather: wsig.WeatherSignals | None = None,
+                  scen: T.Scenario | None = None
+                  ) -> Tuple[T.SimState, dict]:
+    """One engine step where placement decisions come from outside.
+
+    ``st`` is a batched state on the table's device (S = 1 as ``_fresh``
+    builds it, or any S: every scenario gets the same placements).
+    ``place_ids``: the job ids the external scheduler wants started now,
+    on the host (a sequence, numpy array or CPU tensor), optionally
+    padded with -1. A -1 slot is a no-op wherever it stands, as in the
+    reference, so only the real ids are visited: each costs a handful of
+    launches, and the reference's K = 64 padded slots would cost ~500 a
+    step. S-RAPS "interprets the information returned from the scheduler
+    ... and triggers the resource manager" (paper §3.2.4). A job starts
+    only if it is queued, fits the free nodes and passes the thermal gate
+    (on a multi-hall plant: fits the free nodes of halls holding their
+    setpoint, placed coolest hall first); the cap schedule (``signals``)
+    still applies: an external scheduler cannot opt out of facility power
+    or thermal management.
+
+    ``scen`` routes the facility knobs the external scheduler has no say
+    over: ``cap_scale`` (scales the cap schedule), ``setpoint_delta_c``
+    and ``cells_offline``; None keeps every knob neutral. Its policy and
+    backfill are ignored: the external peer is the policy. Without
+    ``signals`` the tick runs the fused node->CDU cooling step
+    (``fused_cooling`` on the card); with them, cap enforcement
+    (``group_power``).
+
+    Returns the new state and this step's telemetry row (a dict of
+    f32[S] / f32[S, H]; ``_history`` stacks rows into a ``StepRecord``).
+    """
+    dev = st.t.device
+    ids = [int(j) for j in torch.as_tensor(place_ids).reshape(-1).tolist()
+           if j >= 0]
+    if scen is None:
+        # neutral knobs; the maintenance count as f32[S], so that the
+        # per-hall telemetry keeps its scenario axis
+        setpoint_delta, cap_scale = 0.0, 1.0
+        cells_offline = torch.zeros_like(st.t)
+    else:
+        if scen.policy.ndim == 0:          # one scenario for every row
+            scen = T.stack_scenarios([scen] * st.t.shape[0])
+        setpoint_delta, cells_offline, cap_scale = (
+            x.to(dev) for x in (scen.setpoint_delta_c, scen.cells_offline,
+                                scen.cap_scale))
+    grid = None if signals is None else gsig.at_step(signals.to(dev), st.step)
+    wx = None if weather is None else wsig.at_step(weather.to(dev), st.step)
+    st = _prepare_and_arrivals(system, table, st)
+    thermal = cooling.thermal_now(system.cooling, st.cooling, setpoint_delta)
+    if ids:
+        st = _place_external(system, table, st, thermal, ids)
+    return _tick(system, table, st, thermal, setpoint_delta, cells_offline,
+                 grid, None if grid is None else grid.cap_w * cap_scale, wx)
+
+
+def _place_external(system: SystemConfig, table: T.JobTable, st: T.SimState,
+                    thermal: cooling.ThermalNow, ids: list[int]) -> T.SimState:
+    """The reference's placement pass over the real ids, in their order,
+    batched over scenarios."""
+    S = st.t.shape[0]
+    hall_aware = system.cooling.n_halls > 1
+    if hall_aware:
+        order_nodes, node_ok, free_ok = sched.hall_placement_plan(
+            system, st, thermal,
+            torch.zeros((S,), dtype=torch.bool, device=st.t.device))
+    thermal_ok = ~thermal.overheat
+    node_job, free_count = st.node_job, st.free_count
+    jstate, start, end = st.jstate.clone(), st.start.clone(), st.end.clone()
+    for j in ids:
+        need = table.nodes[j].expand(S)
+        th_ok = (need <= free_ok) if hall_aware else thermal_ok
+        can = (jstate[:, j] == T.QUEUED) & (need <= free_count) & th_ok
+        if hall_aware:
+            sel = rm.firstfree_mask_ordered(node_job, need, order_nodes)
+        else:
+            sel = rm.firstfree_mask(node_job, need)
+        node_job = rm.place(node_job, sel, torch.full_like(need, j), can)
+        free_count = free_count - torch.where(can, need, 0)
+        if hall_aware:
+            free_ok = free_ok - torch.sum(sel & node_ok & can[:, None], 1,
+                                          dtype=torch.int32)
+        jstate[:, j] = torch.where(can, T.RUNNING, jstate[:, j])
+        start[:, j] = torch.where(can, st.t, start[:, j])
+        end[:, j] = torch.where(can, st.t + table.wall[j], end[:, j])
+    return dataclasses.replace(st, jstate=jstate, start=start, end=end,
+                               node_job=node_job, free_count=free_count)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The wire's framing (port of the host part of ``repro.core.transport``).
+"""The wire's framing and the external scheduler's peers (port of
+``repro.core.transport``).
 
 Newline-delimited JSON frames (one envelope per line, UTF-8) and the
 length-prefixed RBW1 binary dialect, over any byte stream: a Unix-domain
@@ -13,28 +14,43 @@ binary body, an over-long frame) raise ``ProtocolError``, broken speech
 that is not retried; EOF before a frame raises ``ConnectionError`` and a
 socket timeout ``TimeoutError``, transport failures.
 
-Ported here: the handshake digests (``system_digest``, ``job_digest``),
-NDJSON framing with ``WireCounters``, the RBW1 codec
+The handshake digests (``system_digest``, ``job_digest``), NDJSON
+framing with ``WireCounters``, the RBW1 codec
 (``encode_bin_frame``/``decode_bin_frame``/``write_bin_frame``) and the
 dialect-agnostic ``read_any_frame``, ``decode_schedule``,
-``parse_address`` and ``format_address``. One departure: ``_bin_restore``
-reads exactly each array's bytes (the reference reads to the end of the
-payload, which numpy refuses for some leaf orders). The external peers
-(``SocketPeer``, ``SubprocessPeer``) belong to the scheduler bridge and
-are not ported yet (ROADMAP item 14).
+``parse_address`` and ``format_address`` are the reference's. One
+departure: ``_bin_restore`` reads exactly each array's bytes (the
+reference reads to the end of the payload, which numpy refuses for some
+leaf orders).
+
+The external scheduler's peers: ``SocketPeer`` dials a peer that is
+listening (``hello`` with version and caps, then a digest-checked
+``reset`` / ``reset_ack``, then the per-poll timeout; ``auto``,
+``ndjson`` or ``binary`` frames; ``start`` fetches a whole schedule with
+``schedule_req``), and ``SubprocessPeer`` owns its peer process: it
+listens on a fresh socket, spawns the command with ``--connect``
+appended, and kills, reaps and respawns it on every ``reset``. Every
+process it ever spawned stays in ``spawned``, and ``close()`` reaps them
+all. ``tools/reference_peer.py`` is the stdlib-only peer.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import os
+import shlex
+import shutil
 import socket
 import struct
-from dataclasses import dataclass
+import subprocess
+import tempfile
+from dataclasses import dataclass, field
 from typing import IO
 
 import numpy as np
 
-from repro_torch.core.external import WIRE_VERSION, ProtocolError
+from repro_torch.core.external import (WIRE_VERSION, ProtocolError,
+                                       decode_running)
 from repro_torch.datasets.base import JobSet
 from repro_torch.systems.config import SystemConfig
 
@@ -503,3 +519,336 @@ def format_address(family: int, sockaddr) -> str:
         return f"unix:{sockaddr}"
     host, port = sockaddr
     return f"{host}:{port}"
+
+
+# ---------------------------------------------------------------------------
+# Client side: ExternalScheduler over a socket.
+# ---------------------------------------------------------------------------
+@dataclass
+class SocketPeer:
+    """``ExternalScheduler`` whose brain lives across a socket.
+
+    ``reset`` (re)establishes the session from scratch — dial, ``hello``
+    handshake, digest-checked ``reset`` exchange — which is exactly the
+    resync ``SchedulerBridge`` needs its reconnect path to perform, so a
+    mid-stream death or hang heals transparently. Plugs into
+    ``run_plugin_mode`` / ``run_sequential_mode`` unchanged (the process
+    boundary is behaviorally invisible).
+    """
+    address: str | None = None
+    policy: str = "fcfs"
+    backfill: str = "firstfit"
+    wire: str = "auto"                 # "auto" | "ndjson" | "binary"
+    timeout_s: float = 30.0            # per-reply socket budget
+    handshake_timeout_s: float = 20.0  # connect + hello + reset_ack budget
+    peer_hello: dict | None = None
+    counters: WireCounters = field(default_factory=WireCounters)
+    dials: int = 0                     # connection (re)establishments
+    _sock: socket.socket | None = None
+    _rfile: IO[bytes] | None = None
+    _wfile: IO[bytes] | None = None
+    _n_jobs: int = 0
+    _binary: bool = False              # negotiated per connection
+
+    # -- connection lifecycle ----------------------------------------------
+    def _dial(self) -> socket.socket:
+        if self.address is None:
+            raise ValueError("SocketPeer needs an address")
+        family, sockaddr = parse_address(self.address)
+        sock = socket.socket(family, socket.SOCK_STREAM)
+        sock.settimeout(self.handshake_timeout_s)
+        sock.connect(sockaddr)
+        self.dials += 1
+        return sock
+
+    def _attach(self, sock: socket.socket) -> None:
+        """Adopt a connected socket: buffered files + hello validation."""
+        self._sock = sock
+        self._rfile = sock.makefile("rb")
+        self._wfile = sock.makefile("wb")
+        hello = read_frame(self._rfile, self.counters)
+        if hello.get("kind") != "hello":
+            raise ProtocolError(f"expected hello, got "
+                                f"{hello.get('kind')!r}")
+        if hello.get("version") != WIRE_VERSION:
+            raise ProtocolError(
+                f"wire version mismatch: peer speaks "
+                f"{hello.get('version')!r}, bridge speaks {WIRE_VERSION}")
+        self.peer_hello = hello
+        self._binary = self._negotiate_wire(hello)
+
+    def _negotiate_wire(self, hello: dict) -> bool:
+        """Pick the frame dialect from our policy + the peer's caps.
+
+        ``auto`` upgrades to binary whenever the peer advertises
+        ``CAP_BINARY`` and falls back to NDJSON otherwise (legacy peers
+        send no ``caps`` at all); ``binary`` demands the capability and
+        treats its absence as broken speech; ``ndjson`` pins the legacy
+        dialect regardless of what the peer could do."""
+        caps = hello.get("caps") or []
+        if not isinstance(caps, list):
+            raise ProtocolError(f"hello caps must be a list, got "
+                                f"{type(caps).__name__}")
+        if self.wire == "ndjson":
+            return False
+        if self.wire == "binary":
+            if CAP_BINARY not in caps:
+                raise ProtocolError(
+                    f"wire=binary requested but peer "
+                    f"{hello.get('name')!r} does not advertise "
+                    f"{CAP_BINARY!r} (caps={caps!r})")
+            return True
+        if self.wire != "auto":
+            raise ValueError(f"wire must be auto|ndjson|binary, "
+                             f"got {self.wire!r}")
+        return CAP_BINARY in caps
+
+    @property
+    def batch_capable(self) -> bool:
+        """Whether the connected peer advertised batched polls."""
+        caps = (self.peer_hello or {}).get("caps") or []
+        return CAP_BATCH in caps
+
+    def _teardown_connection(self) -> None:
+        for f in (self._wfile, self._rfile, self._sock):
+            if f is not None:
+                try:
+                    f.close()
+                except OSError:
+                    pass
+        self._sock = self._rfile = self._wfile = None
+
+    def _establish(self) -> None:
+        self._attach(self._dial())
+
+    # -- ExternalScheduler protocol ----------------------------------------
+    def reset(self, system: SystemConfig, jobs: JobSet, t0: float) -> None:
+        """Fresh session: (re)connect, handshake, digest-checked resync."""
+        self._teardown_connection()
+        try:
+            self._establish()
+            self._n_jobs = len(jobs)
+            sys_d, job_d = system_digest(system), job_digest(jobs)
+            # the binary dialect ships the columns as raw little-endian
+            # arrays (same values — the digests don't change); NDJSON
+            # spells them as JSON lists via .tolist(), which yields
+            # native floats/ints losslessly without numpy-scalar boxing
+            cols = {
+                "submit": np.asarray(jobs.submit, np.float64),
+                "limit": np.asarray(jobs.limit, np.float64),
+                "wall": np.asarray(jobs.wall, np.float64),
+                "nodes": np.asarray(jobs.nodes, np.int64),
+                "priority": np.asarray(jobs.priority, np.float64),
+                "account": np.asarray(jobs.account, np.int64),
+            }
+            if not self._binary:
+                cols = {k: v.tolist() for k, v in cols.items()}
+            self._send({
+                "version": WIRE_VERSION, "kind": "reset", "t0": float(t0),
+                "policy": self.policy, "backfill": self.backfill,
+                "system": {"n_nodes": int(system.n_nodes),
+                           "dt": float(system.dt), "name": system.name},
+                "system_digest": sys_d, "job_digest": job_d,
+                "jobs": cols,
+            })
+            ack = self._recv()
+            if ack.get("kind") == "error":
+                raise ProtocolError(f"peer rejected reset: "
+                                    f"{ack.get('message')!r}")
+            if ack.get("kind") != "reset_ack":
+                raise ProtocolError(f"expected reset_ack, got "
+                                    f"{ack.get('kind')!r}")
+            if ack.get("version") != WIRE_VERSION:
+                raise ProtocolError(f"wire version mismatch in reset_ack: "
+                                    f"{ack.get('version')!r}")
+            if ack.get("n_jobs") != len(jobs):
+                raise ProtocolError(f"peer deserialized {ack.get('n_jobs')!r}"
+                                    f" jobs, sent {len(jobs)}")
+            if ack.get("system_digest") != sys_d or \
+                    ack.get("job_digest") != job_d:
+                raise ProtocolError(
+                    "handshake digest mismatch: the peer's view of the "
+                    "(system, jobs) state diverged from the twin's — "
+                    f"system {ack.get('system_digest')!r} vs {sys_d!r}, "
+                    f"jobs {ack.get('job_digest')!r} vs {job_d!r}")
+            # handshake (hello + digest-checked reset_ack, which may
+            # include the peer computing its whole schedule) ran under
+            # handshake_timeout_s; polls get the tighter per-call budget
+            self._sock.settimeout(self.timeout_s)
+        except ProtocolError:
+            # broken speech is terminal for the session: don't leak the
+            # half-open connection (or, in SubprocessPeer, the process)
+            self._teardown_connection()
+            raise
+
+    def poll_wire(self, t: float) -> dict:
+        """One poll round-trip; returns the raw envelope for the bridge."""
+        self._send({"version": WIRE_VERSION, "kind": "poll", "t": float(t)})
+        reply = self._recv()
+        if reply.get("kind") == "error":
+            raise ProtocolError(f"peer error: {reply.get('message')!r}")
+        return reply
+
+    def poll_wire_batch(self, ts) -> dict:
+        """One exchange answering many timestamps (``CAP_BATCH`` peers).
+
+        ``SchedulerBridge.poll_many`` only calls this when
+        ``batch_capable`` is true, and validates the reply with
+        ``decode_running_sets``."""
+        self._send({"version": WIRE_VERSION, "kind": "poll_batch",
+                    "ts": [float(t) for t in ts]})
+        reply = self._recv()
+        if reply.get("kind") == "error":
+            raise ProtocolError(f"peer error: {reply.get('message')!r}")
+        return reply
+
+    def running_at(self, t: float) -> np.ndarray:
+        return decode_running(self.poll_wire(t), self._n_jobs or (1 << 31))
+
+    @property
+    def start(self) -> np.ndarray:
+        """Full schedule (sequential mode): fetched over the wire."""
+        self._send({"version": WIRE_VERSION, "kind": "schedule_req"})
+        reply = self._recv()
+        if reply.get("kind") == "error":
+            raise ProtocolError(f"peer error: {reply.get('message')!r}")
+        return decode_schedule(reply, self._n_jobs)
+
+    # -- plumbing -----------------------------------------------------------
+    def _send(self, msg: dict) -> None:
+        if self._wfile is None:
+            raise ConnectionError("not connected (reset first)")
+        if self._binary:
+            write_bin_frame(self._wfile, msg, self.counters)
+        else:
+            write_frame(self._wfile, msg, self.counters)
+
+    def _recv(self) -> dict:
+        if self._rfile is None:
+            raise ConnectionError("not connected (reset first)")
+        return read_any_frame(self._rfile, self.counters)
+
+    def stats(self) -> dict:
+        """Monotonic transport counters for the flight recorder."""
+        return {"kind": type(self).__name__, "dials": self.dials,
+                "wire": "binary" if self._binary else "ndjson",
+                **self.counters.as_dict()}
+
+    def close(self) -> None:
+        """Best-effort ``bye``, then drop the connection."""
+        if self._wfile is not None:
+            try:
+                self._send({"version": WIRE_VERSION, "kind": "bye"})
+            except (OSError, ConnectionError):
+                pass
+        self._teardown_connection()
+
+    def __enter__(self) -> "SocketPeer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+@dataclass
+class SubprocessPeer(SocketPeer):
+    """``SocketPeer`` that owns its peer process.
+
+    The twin listens on a fresh Unix-domain socket (TCP loopback where
+    AF_UNIX is unavailable), spawns ``cmd`` with ``--connect <address>``
+    appended, and accepts the peer's dial-in within
+    ``handshake_timeout_s`` — no bind race. Bridge-driven ``reset``
+    kills, *reaps* and respawns the process (full resync); ``close()``
+    tears everything down and asserts nothing is left unreaped. Every
+    ``Popen`` ever spawned stays in ``spawned`` so tests can verify no
+    zombies survive any fault path.
+    """
+    cmd: str | list[str] = ""
+    cwd: str | None = None
+    spawned: list = field(default_factory=list)
+    _proc: subprocess.Popen | None = None
+    _tmpdir: str | None = None
+
+    def _spawn_cmd(self) -> list[str]:
+        argv = shlex.split(self.cmd) if isinstance(self.cmd, str) \
+            else list(self.cmd)
+        if not argv:
+            raise ValueError("SubprocessPeer needs a peer command")
+        return argv
+
+    def _establish(self) -> None:
+        argv = self._spawn_cmd()  # validate before binding anything
+        self._tmpdir = tempfile.mkdtemp(prefix="repro-peer-")
+        if hasattr(socket, "AF_UNIX"):
+            listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            listener.bind(os.path.join(self._tmpdir, "peer.sock"))
+            address = f"unix:{os.path.join(self._tmpdir, 'peer.sock')}"
+        else:  # pragma: no cover - non-POSIX fallback
+            listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            listener.bind(("127.0.0.1", 0))
+            address = "127.0.0.1:%d" % listener.getsockname()[1]
+        listener.listen(1)
+        listener.settimeout(self.handshake_timeout_s)
+        log = open(os.path.join(self._tmpdir, "peer.log"), "ab")
+        try:
+            self._proc = subprocess.Popen(
+                argv + ["--connect", address],
+                stdin=subprocess.DEVNULL, stdout=log, stderr=log,
+                cwd=self.cwd)
+        except OSError:
+            # spawn itself failed (bad command): nothing to accept, and
+            # the retry must not leak this attempt's listener or tmpdir
+            listener.close()
+            self._reap()
+            raise
+        finally:
+            log.close()
+        self.spawned.append(self._proc)
+        try:
+            conn, _ = listener.accept()
+        except (socket.timeout, TimeoutError) as e:
+            self._reap()
+            raise TimeoutError(
+                f"peer {argv!r} did not connect within "
+                f"{self.handshake_timeout_s}s") from e
+        finally:
+            listener.close()
+        conn.settimeout(self.handshake_timeout_s)
+        self.dials += 1
+        self._attach(conn)
+
+    def stats(self) -> dict:
+        """Transport counters + process lifecycle (spawns/respawns)."""
+        out = super().stats()
+        out["spawns"] = len(self.spawned)
+        out["respawns"] = max(len(self.spawned) - 1, 0)
+        return out
+
+    def _reap(self) -> None:
+        """Terminate (escalating to kill) and wait() the child, if any;
+        always drops this attempt's tmpdir, spawned or not."""
+        proc = self._proc
+        self._proc = None
+        if proc is not None:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=5.0)
+                except subprocess.TimeoutExpired:  # pragma: no cover
+                    proc.kill()
+                    proc.wait()
+            else:
+                proc.wait()  # already dead: collect the exit status
+        if self._tmpdir is not None:
+            shutil.rmtree(self._tmpdir, ignore_errors=True)
+            self._tmpdir = None
+
+    def _teardown_connection(self) -> None:
+        super()._teardown_connection()
+        self._reap()
+
+    def __del__(self) -> None:  # safety net; close() is the contract
+        try:
+            self._teardown_connection()
+        except Exception:
+            pass

@@ -5,6 +5,16 @@
 
 --system selects the synthetic dataloader, --policy/--backfill the built-in
 scheduler, --sweep several policy[:backfill] scenarios run as one batch.
+--scheduler fastsim|scheduleflow couples an in-process event-based
+external simulator (``repro_torch.core.external``: FastSim schedules the
+whole backlog first and the twin replays it, ScheduleFlow is polled every
+step); --external-cmd spawns an out-of-process peer and --external-socket
+dials one that is listening (``core.transport``), coupled in
+--external-mode plugin (polled every step) or sequential (its schedule
+replayed), over --external-wire auto|ndjson|binary frames with a
+--external-timeout per poll. An unset --backfill means none for the
+built-in scheduler and firstfit for an external peer; the bridge's
+counters reach the --json document and the manifest.
 The failure and demand-response flags (--failure-rate, --cdu-failure-rate,
 --cell-failure-rate, --failure-corr, --failure-seed, --repair,
 --no-requeue, --dr-announce, --dr-notice, --dr-duration, --dr-cap-mw)
@@ -28,7 +38,7 @@ Subcommand ``serve`` runs the twin as a persistent service
 (``repro_torch.serve.cli``, docs/serving.md); ``calibrate`` fits the
 cooling-plant parameters to recorded facility telemetry
 (``repro_torch.traces.calibrate``). The JAX CLI's ``train`` subcommand
-and its external scheduler flags wait for the port of their layers.
+waits for the port of its layer.
 """
 from __future__ import annotations
 
@@ -38,8 +48,11 @@ import pathlib
 import sys
 import time
 
+import torch
+
 from repro_torch import obs, resolve_device
 from repro_torch.core import engine as eng
+from repro_torch.core import external as ext
 from repro_torch.core import stats as stats_mod
 from repro_torch.core import types as T
 from repro_torch.datasets import loaders
@@ -170,8 +183,14 @@ def main(argv=None):
                     help="measured weather CSV/NPZ (timestamp + wet-bulb "
                          "or dry-bulb/RH) driving the cooling tower "
                          "ambient (repro_torch.traces.weather)")
+    ap.add_argument("--scheduler", default="default",
+                    choices=["default", "experimental", "fastsim",
+                             "scheduleflow"])
     ap.add_argument("--policy", default="replay")
-    ap.add_argument("--backfill", default="none")
+    ap.add_argument("--backfill", default=None,
+                    help="backfill mode (default: none for built-in "
+                         "schedulers, firstfit for external peers; an "
+                         "explicit value always wins)")
     ap.add_argument("--sweep", nargs="*", default=None,
                     help="policy[:backfill] list to run as one batch")
     ap.add_argument("--failure-rate", type=float, default=None,
@@ -200,6 +219,29 @@ def main(argv=None):
                     help="how long the DR cap holds")
     ap.add_argument("--dr-cap-mw", type=float, default=0.0,
                     help="DR cap level (MW)")
+    ap.add_argument("--external-cmd", default=None,
+                    help="couple an out-of-process scheduler: spawn this "
+                         "command as a subprocess peer (socket wire "
+                         "protocol, docs/external-scheduling.md), e.g. "
+                         "'python -m tools.reference_peer'")
+    ap.add_argument("--external-socket", default=None,
+                    help="couple a peer already listening at unix:/path "
+                         "or host:port (see tools/reference_peer.py "
+                         "--listen)")
+    ap.add_argument("--external-mode", default="plugin",
+                    choices=["plugin", "sequential"],
+                    help="coupling mode for --external-cmd/--external-"
+                         "socket (paper §4.2: per-step polling vs "
+                         "schedule-then-replay)")
+    ap.add_argument("--external-wire", default="auto",
+                    choices=("auto", "ndjson", "binary"),
+                    help="wire dialect for the external peer: auto "
+                         "upgrades to binary frames when the peer "
+                         "advertises the capability, ndjson pins the "
+                         "legacy dialect, binary demands it")
+    ap.add_argument("--external-timeout", type=float, default=30.0,
+                    help="per-poll wall budget (s) for the external "
+                         "bridge; also the socket recv timeout")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only on request)")
     # flight recorder (docs/observability.md)
@@ -250,8 +292,14 @@ def main(argv=None):
                                    events_path=args.events)
         recorder.begin(
             sys_, command="sweep" if args.sweep else "simulate", argv=argv,
-            scenario={"policy": args.policy, "backfill": args.backfill,
-                      "sweep": args.sweep, "halls": args.halls,
+            scenario={"policy": args.policy,
+                      "backfill": args.backfill or "none",
+                      "scheduler": args.scheduler, "sweep": args.sweep,
+                      "external_cmd": args.external_cmd,
+                      "external_socket": args.external_socket,
+                      "external_mode": args.external_mode,
+                      "external_wire": args.external_wire,
+                      "halls": args.halls,
                       "failure_rate_per_day": args.failure_rate,
                       "failure_seed": args.failure_seed,
                       "dr_cap_mw": args.dr_cap_mw, "device": args.device,
@@ -272,8 +320,9 @@ def main(argv=None):
 
     wall0 = time.perf_counter()
     with obs.use(timer):
-        runs = _run(args, sys_, table, t0, t1, fail_kw, signals, events,
-                    weather)
+        runs, bridge = _run(args, sys_, js, table, t0, t1, fail_kw, signals,
+                            events, weather,
+                            recorder.span_listener if recorder else None)
     wall = time.perf_counter() - wall0
     if profiler is not None:
         profiler.stop()
@@ -298,9 +347,13 @@ def main(argv=None):
     if sink is not None:
         sink.close()
         rep.info(f"metrics: {sink.n_frames} frames -> {args.metrics}")
+    if bridge is not None:
+        rep.result_json("bridge", bridge.stats())
     if recorder is not None:
         recorder.event("run_end", wall_s=wall)
         counters = {}
+        if bridge is not None:
+            counters["bridge"] = bridge.stats()
         if sink is not None:
             counters["metrics_frames"] = sink.n_frames
         recorder.finalize(spans=timer.summary(), counters=counters,
@@ -323,25 +376,92 @@ def _start_profile(args):
     return prof
 
 
-def _run(args, sys_, table, t0, t1, fail_kw, signals, events, weather):
-    """One CLI invocation on the engine: a list of ((policy, backfill),
-    final, hist), one per scenario. ``weather`` (a measured trace,
-    --weather-trace, or None) drives every scenario's towers."""
+def _run(args, sys_, js, table, t0, t1, fail_kw, signals, events, weather,
+         on_event=None):
+    """One CLI invocation on the engine. Returns (runs, bridge): ``runs``
+    a list of ((policy, backfill), final, hist), one per scenario, and
+    ``bridge`` the ``SchedulerBridge`` of an external coupling in plugin
+    mode (its counters feed the manifest), else None. ``weather`` (a
+    measured trace, --weather-trace, or None) drives every scenario's
+    towers; the external couplings model no ambient conditions, so
+    combining them with a weather trace is refused, not ignored."""
+    external = args.scheduler in ("fastsim", "scheduleflow")
+    if weather is not None and (args.external_cmd or args.external_socket
+                                or external):
+        raise SystemExit("--weather-trace is not supported with external "
+                         "scheduler coupling")
+    if args.external_cmd or args.external_socket:
+        return _run_peer(args, sys_, js, t0, t1, on_event)
+    if external:
+        # the external peer is the policy; the facility knobs stay neutral
+        bridge = None
+        if args.scheduler == "fastsim":
+            sched = ext.FastSimLike(policy=args.policy
+                                    if args.policy != "replay" else "fcfs")
+            final, hist = ext.run_sequential_mode(sys_, js, sched, t0, t1,
+                                                  device=args.device)
+        else:
+            # explicit bridge so its poll counters reach the manifest
+            bridge = ext.SchedulerBridge(ext.ScheduleFlowLike(),
+                                         on_event=on_event)
+            final, hist, _ = ext.run_plugin_mode(sys_, js, bridge, t0, t1,
+                                                 device=args.device)
+            hist = _record(hist)
+        return [((args.policy, "external"), final, hist)], bridge
+    backfill = args.backfill or "none"
     if args.sweep or fail_kw:
         specs = [(p, b or "none") for p, _, b in
                  (s.partition(":") for s in args.sweep)] if args.sweep \
-            else [(args.policy, args.backfill)]
+            else [(args.policy, backfill)]
         finals, hists = eng.simulate_sweep(
             sys_, table, [T.Scenario.make(p, b, **fail_kw)
                           for p, b in specs], t0, t1,
             signals=signals, weather=weather, events=events,
             device=args.device)
         return [(spec, T.row(finals, i), T.row(hists, i))
-                for i, spec in enumerate(specs)]
-    final, hist = eng.simulate_static(sys_, table, args.policy,
-                                      args.backfill, t0, t1,
-                                      weather=weather, device=args.device)
-    return [((args.policy, args.backfill), final, hist)]
+                for i, spec in enumerate(specs)], None
+    final, hist = eng.simulate_static(sys_, table, args.policy, backfill,
+                                      t0, t1, weather=weather,
+                                      device=args.device)
+    return [((args.policy, backfill), final, hist)], None
+
+
+def _run_peer(args, sys_, js, t0, t1, on_event):
+    """An out-of-process peer (--external-cmd or --external-socket) in
+    plugin or sequential mode; returns ``_run``'s (runs, bridge)."""
+    from repro_torch.core import transport as tr
+    policy = args.policy if args.policy != "replay" else "fcfs"
+    # an explicit --backfill (none included) reaches the peer; only the
+    # unset default maps to FastSimLike's firstfit
+    kw = dict(policy=policy, backfill=args.backfill or "firstfit",
+              timeout_s=args.external_timeout, wire=args.external_wire)
+    peer = tr.SubprocessPeer(cmd=args.external_cmd, **kw) \
+        if args.external_cmd else \
+        tr.SocketPeer(address=args.external_socket, **kw)
+    bridge = None
+    try:
+        if args.external_mode == "sequential":
+            # one-shot coupling: the peer is driven directly (the
+            # bridge's poll retries have nothing to wrap here)
+            final, hist = ext.run_sequential_mode(sys_, js, peer, t0, t1,
+                                                  device=args.device)
+        else:
+            bridge = ext.SchedulerBridge(
+                peer, ext.BridgeConfig(timeout_s=args.external_timeout),
+                on_event=on_event)
+            final, hist, _ = ext.run_plugin_mode(sys_, js, bridge, t0, t1,
+                                                 device=args.device)
+            hist = _record(hist)
+    finally:
+        peer.close()
+    return [((policy, f"external:{args.external_mode}"), final, hist)], \
+        bridge
+
+
+def _record(hist: dict) -> T.StepRecord:
+    """Plugin mode's history (numpy arrays by field) as a ``StepRecord``
+    of tensors, which the summary and the metrics stream read."""
+    return T.StepRecord(**{k: torch.from_numpy(v) for k, v in hist.items()})
 
 
 if __name__ == "__main__":

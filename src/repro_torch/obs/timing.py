@@ -17,7 +17,8 @@ by another (a server's executor thread runs unobserved), as in the
 reference.
 
 ``LatencyHistogram`` is the fixed-bucket (log-spaced) histogram the
-reference's external bridge keeps per poll; the bridge is not ported yet.
+external bridge (``repro_torch.core.external.SchedulerBridge``) keeps per
+poll.
 
 All durations in seconds.
 """
