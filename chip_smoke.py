@@ -7,9 +7,10 @@ Builds every Hopper kernel of the port from the sources in this checkout
 PyTorch version on the card and times it, then drives the port's paths
 through their entry points at full width and checks what comes out:
 
-* the no-grid Frontier scenario sweep (9,600 nodes, 25 CDU groups, 1,238
-  jobs, 6 h = 1,440 steps, 8 scenarios), which runs the fused cooling
-  kernel once a step;
+* ``frontier-sweep-3h``, the no-grid Frontier scenario sweep (9,600
+  nodes, 25 CDU groups, 1,238 jobs, 8 scenarios; 3 h = 720 steps, cut
+  from 6 h for the script's time), which runs the fused cooling kernel
+  once a step;
 * ``frontier-grid-6h``, the grid path: the same machine and backlog
   under synthetic carbon, price and power-cap signals (the evening cap
   dip in the last 3 h), 12 (cap level x policy x weight) scenarios, which
@@ -44,14 +45,14 @@ through their entry points at full width and checks what comes out:
   nodes, 32 CDU groups, 4,000 jobs, 120 steps of 60 s, 8 scenarios),
   whose fused cooling launches give each group's span of 4,968 nodes
   to one CTA of 512 threads;
-* ``frontier-replay-6h``, measured-power replay (``repro_torch.traces``):
+* ``frontier-replay-3h``, measured-power replay (``repro_torch.traces``):
   the Frontier loader's day with whole-second times and a seeded
   measured per-node power channel for two thirds of the jobs, written
   as a trace NPZ and read back by ``load_trace``, packed with compact
   (int32) time columns, under the repo's measured weather week (read
   with the stdlib, loaded from an NPZ); fig4's four (policy, backfill)
-  pairs at setpoint +0 and +2 °C, 8 scenarios, 6 h, one fused cooling
-  launch a step. Row 0 = solo, and on the first hour an all-sentinel
+  pairs at setpoint +0 and +2 °C, 8 scenarios, 3 h (cut from 6 h), one
+  fused cooling launch a step. Row 0 = solo, and on the first hour an all-sentinel
   channel = the model table and compact time = float32 time, bit for
   bit; then the CLI's ``--trace --replay-power --weather-trace`` as a
   process;
@@ -59,7 +60,8 @@ through their entry points at full width and checks what comes out:
   the committed 8,640-step fixture: the graphed rollout against the
   eager loop bit for bit, the card against the CPU, a whole-fixture fit
   recovering the fixture's true parameters within 2 %, then
-  ``simulate calibrate --out`` and ``--check`` as processes;
+  ``simulate calibrate --out`` and ``--check`` as processes on a 2,880
+  step window of the fixture (cut for the script's time);
 * fig7's external schedulers (``repro_torch.core.external``) on Frontier
   at full width with ``benchmarks/fig7_external.py``'s backlog (5,324
   synthetic jobs over 15 days, load 0.9): FastSimLike's whole schedule
@@ -71,6 +73,18 @@ through their entry points at full width and checks what comes out:
   that binds; one fused cooling launch a step without signals, one
   group-power launch a step with them; then the CLI's ``--scheduler
   fastsim`` and ``--external-cmd`` (plugin) as processes;
+* ``marconi100-incentives-6h``, fig8's collect-then-redeem incentive
+  workflow (``benchmarks/fig8_incentives.py``'s 1,500-job backlog on
+  Marconi100 at full width, 6 h) through the CLI as two processes: a
+  replay that writes its ledger (``--accounts -o``), then the four
+  acct_* policies under first-fit warm-started from it
+  (``--accounts-json``), each row's start times held against the same
+  sweep run in process from empty ledgers (one fused cooling launch a
+  step) and fig8's favored-start advantage printed; then the CLI's
+  ``--halls 4 --cells-offline 2,0,0,0 -ff 6h -t 1h --sweep ... -o`` at
+  Frontier's width as a process, and ``simulate_sweep_sharded`` on one
+  card (two chunks, and every visible card) against ``simulate_sweep``
+  bit for bit;
 * LM serving (``repro_torch.launch.serve_lm``) of qwen2.5-3b, rwkv6-7b
   and zamba2-7b at full width, one after another: 4 prompts of 512
   tokens and 16 greedy decode steps, whose prefills run the flash
@@ -79,7 +93,8 @@ through their entry points at full width and checks what comes out:
 
 and a small card-against-CPU check of each path (with weather and
 failures on, also of the event layer's draws; a small session too; the
-SWF fixture replayed with failures; plugin and sequential mode). The
+SWF fixture replayed with failures; plugin and sequential mode; the
+incentive workflow through the CLI). The
 trace and calibration phases must not import pandas or pyarrow. Before the paths, each
 kernel is held to its plain version at the paths' shapes and ragged ones
 and timed (CUDA graph, eager, host enqueue, the launch floor; for the
@@ -95,9 +110,13 @@ or when the ``src/repro_torch`` package is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
 import importlib.util
+import io
 import json
+import logging
 import os
 import pathlib
 import re
@@ -169,7 +188,10 @@ SWEEP = [("fcfs", "easy"), ("fcfs", "none"), ("sjf", "first-fit"),
          ("acct_fugaku_pts", "easy"), ("thermal_aware", "easy"),
          ("replay", "none")]
 FRONTIER_T1 = 6 * 3600.0     # the CLI's default window
-ADMIT_WINDOW = 480           # steps of frontier-sweep-6h's admission rerun
+# frontier-sweep-3h's and frontier-replay-3h's window: cut from 6 h to
+# 3 h (720 steps) to keep the script's time (the cells were -6h before)
+SWEEP_T1 = 3 * 3600.0
+ADMIT_WINDOW = 480           # steps of frontier-sweep-3h's admission rerun
 FUGAKU_T1 = 2 * 3600.0       # 120 steps at Fugaku's dt = 60 s
 # frontier-grid-6h: benchmarks/fig_carbon.py's cap levels and carbon
 # weights under first-fit, plus price_aware and two EASY rows
@@ -206,7 +228,7 @@ SESSION_FORK_AT = 4          # intervals: step 240, t = 1 h
 # the five branches 2 intervals at once
 WIRE_ADVANCE = 2
 
-# frontier-replay-6h: fig4's four (policy, backfill) pairs
+# frontier-replay-3h: fig4's four (policy, backfill) pairs
 # (benchmarks/fig4_pm100.py) at two supply setpoints, on the Frontier day
 # with a measured power channel for two thirds of the jobs, under the
 # repo's measured weather week
@@ -221,6 +243,9 @@ CAL_DIR = ROOT / "tests" / "data" / "calibration"
 CAL_RECOVERY = 0.02
 CAL_STEP_RTOL = 1e-5
 CAL_CHANNELS = ("t_basin_c", "t_supply_c", "t_return_c", "pue")
+# the calibrate subcommand's window of the fixture: 2,880 of its 8,640
+# steps (cut for the script's time; the in-process fit takes all of it)
+CAL_CLI_WINDOW = slice(2880, 5760)
 # the reference's test_replay_composes_with_events scenario
 KILL = dict(failure_seed=3.0, node_fail_rate=5e-4, cdu_fail_rate=2e-5,
             failure_corr=0.5, repair_s=900.0)
@@ -664,11 +689,11 @@ def main_path(card, entry):
     """The no-grid Frontier sweep: one fused_cooling launch a step."""
     system, table = frontier_case()
     scens = [T.Scenario.make(p, b) for p, b in SWEEP]
-    n_steps = int(round(FRONTIER_T1 / system.dt))
+    n_steps = int(round(SWEEP_T1 / system.dt))
     S = len(scens)
     print(f"main path: frontier N={system.n_nodes} G={system.cooling.n_groups} "
           f"J={table.num_jobs} steps={n_steps} S={S}")
-    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, FRONTIER_T1)
+    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, SWEEP_T1)
     (finals, hists), wall, launches = run_counted(run)
     print(f"[{card}] sweep: {n_steps} steps x {S} scenarios in {wall!r} s = "
           f"{n_steps / wall!r} steps/s, launches {launches}")
@@ -685,7 +710,7 @@ def main_path(card, entry):
               f"avg_wait_s={s['avg_wait_s']:.1f} "
               f"t_tower_return_max_c={s['t_tower_return_max_c']:.3f}")
     check_row_vs_solo("no-grid sweep", finals, hists, eng.simulate_static(
-        system, table, *SWEEP[0], 0.0, FRONTIER_T1))
+        system, table, *SWEEP[0], 0.0, SWEEP_T1))
     # the synchronised rerun covers the first ADMIT_WINDOW steps only (cut
     # from the whole 6 h to keep the script's time)
     admit_s, total = admission_share(lambda: eng.simulate_sweep(
@@ -793,9 +818,13 @@ def grid_path(card, entry):
     row0 = eng.simulate_static(system, table, *GRID_SWEEP[0][:2], 0.0,
                                FRONTIER_T1, signals=sig)
     check_row_vs_solo("grid sweep", finals, hists, row0)
-    admit_s, total = admission_share(run)
-    print(f"[{card}] grid admission loop: {admit_s!r} s of {total!r} s "
-          f"= {admit_s / total!r} of step time (synchronised run)")
+    # the synchronised rerun covers the first ADMIT_WINDOW steps only (cut
+    # from the whole 6 h to keep the script's time)
+    admit_s, total = admission_share(lambda: eng.simulate_sweep(
+        system, table, scens, 0.0, ADMIT_WINDOW * system.dt, signals=sig))
+    print(f"[{card}] grid admission loop ({ADMIT_WINDOW} steps): {admit_s!r} "
+          f"s of {total!r} s = {admit_s / total!r} of step time "
+          f"(synchronised run)")
     print(f"[{card}] group_power total on the grid path: "
           f"{entry['ms'] * n_steps!r} ms on the card ({n_steps} launches x "
           f"{entry['ms']!r} ms) of {wall * 1e3!r} ms")
@@ -929,12 +958,18 @@ def events_path(card, grid_row0, grid_steps_s):
             raise SystemExit(f"events sweep: row 0's {name} differs from "
                              f"the solo run's")
     # events on at zero rates with DR off, under a constant trace at the
-    # config's wet-bulb: the grid sweep's row 0, bit for bit
+    # config's wet-bulb: the grid sweep's row 0, bit for bit, over the
+    # whole 6 h, whose last 3 h are the cap dip where enforce_cap binds
     const = wsig.constant_weather(n_steps, system.cooling.t_wetbulb_c)
     zero_f, zero_h = eng.simulate(
         system, table, T.Scenario.make(*EVENT_POLICIES[0]), 0.0, FRONTIER_T1,
         signals=sig, weather=const, events=EventConfig())
     (row_f, row_h) = grid_row0
+    n_bound = int((row_h.throttle_frac > 0).sum())
+    if n_bound == 0:
+        raise SystemExit("events sweep: the cap never binds in the grid "
+                         "sweep's row 0, so the zero-rate identity misses "
+                         "enforce_cap")
     same = all(torch.equal(getattr(zero_h, k), v) for k, v in
                vars(row_h).items()) and all(
         torch.equal(getattr(zero_f, k), getattr(row_f, k))
@@ -943,8 +978,9 @@ def events_path(card, grid_row0, grid_steps_s):
     if not same or float(zero_f.events.jobs_killed) != 0.0:
         raise SystemExit("events sweep: events on at zero rates with a "
                          "constant trace differ from the grid sweep's row 0")
-    print("events sweep: events on at zero rates, DR off, constant trace at "
-          "the config's wet-bulb: bit-identical to the grid sweep's row 0")
+    print(f"events sweep: events on at zero rates, DR off, constant trace at "
+          f"the config's wet-bulb: bit-identical to the grid sweep's row 0 "
+          f"({n_steps} steps, the cap binding at {n_bound} of them)")
     grid_ops = ops_per_step(lambda: eng.simulate_sweep(
         system, table, [T.Scenario.make(p, b, **kw) for p, b, kw in
                         GRID_SWEEP], 0.0, 12 * system.dt, signals=sig))
@@ -1650,7 +1686,7 @@ def trees_equal(a, b) -> bool:
     return True
 
 def replay_path(card, tmp):
-    """frontier-replay-6h: the no-grid sweep at Frontier's width replaying
+    """frontier-replay-3h: the no-grid sweep at Frontier's width replaying
     a measured power channel, compact time columns, the measured weather
     week; one fused_cooling launch a step. Returns the trace and weather
     NPZ paths for the CLI phase."""
@@ -1661,7 +1697,7 @@ def replay_path(card, tmp):
     for f in ("submit", "limit", "wall", "rec_start"):
         if getattr(table, f).dtype != torch.int32:
             raise SystemExit(f"replay: {f} is {getattr(table, f).dtype}")
-    n_steps = int(round(FRONTIER_T1 / system.dt))
+    n_steps = int(round(SWEEP_T1 / system.dt))
     wx = weather_npz(tmp)
     weather = traces.load_weather(wx, n_steps, system.dt)
     scens = [T.Scenario.make(p, b, setpoint_delta_c=d)
@@ -1675,7 +1711,7 @@ def replay_path(card, tmp):
           f"= {prof.numel() * prof.element_size()} B; wet-bulb "
           f"{float(weather.t_wetbulb_c.min())!r}.."
           f"{float(weather.t_wetbulb_c.max())!r} C")
-    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, FRONTIER_T1,
+    run = lambda: eng.simulate_sweep(system, table, scens, 0.0, SWEEP_T1,
                                      weather=weather)
     (finals, hists), wall, launches = run_counted(run)
     print(f"[{card}] replay sweep: {n_steps} steps x {S} scenarios in "
@@ -1696,7 +1732,7 @@ def replay_path(card, tmp):
               f"avg_pue={s['avg_pue']:.5f} "
               f"t_tower_return_max_c={s['t_tower_return_max_c']:.3f}")
     check_row_vs_solo("replay sweep", finals, hists, eng.simulate_static(
-        system, table, *FIG4[0], 0.0, FRONTIER_T1, weather=weather))
+        system, table, *FIG4[0], 0.0, SWEEP_T1, weather=weather))
     del finals, hists
 
     # the bit-for-bit identities, on the first REPLAY_WINDOW steps
@@ -1754,7 +1790,8 @@ def calibrate_path(card, tmp):
     """Cooling-plant calibration on the card over the whole committed
     fixture (8,640 steps of 20 s): the graphed rollout against the eager
     loop, the card against the CPU, the fit's recovery of the truth, then
-    ``simulate calibrate --out`` and ``--check`` as processes."""
+    ``simulate calibrate --out`` and ``--check`` as processes on a 2,880
+    step window of it, the window's fit also within 2 % of the truth."""
     z = np.load(CAL_DIR / "telemetry.npz", allow_pickle=False)
     cfg = get_system("frontier").cooling
     committed = cal.FittedParams.load(CAL_DIR / "fitted_params.json")
@@ -1813,10 +1850,12 @@ def calibrate_path(card, tmp):
     if sorted(errs) != sorted(cal.DEFAULT_FIT) or \
             max(errs.values()) > CAL_RECOVERY:
         raise SystemExit(f"calibrate: the fit missed the truth: {errs}")
-    out = tmp / "fitted.json"
+    out, window = tmp / "fitted.json", tmp / "telemetry-window.npz"
+    np.savez(window, **{k: z[k][CAL_CLI_WINDOW] if z[k].ndim else z[k]
+                        for k in z.files})
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     base = [sys.executable, "-m", "repro_torch.launch.simulate", "calibrate",
-            "--telemetry", str(CAL_DIR / "telemetry.npz")]
+            "--telemetry", str(window)]
     for args, label in ((["--out", str(out)], "fit"),
                         (["--check", str(out)], "check")):
         t = time.perf_counter()
@@ -1828,7 +1867,9 @@ def calibrate_path(card, tmp):
             raise SystemExit(f"calibrate CLI {label} exited "
                              f"{proc.returncode}: {proc.stdout[-2000:]} "
                              f"{proc.stderr[-2000:]}")
-        print(f"[{card}] simulate calibrate {' '.join(args[:1])}: exit 0 in "
+        print(f"[{card}] simulate calibrate {' '.join(args[:1])} (steps "
+              f"{CAL_CLI_WINDOW.start}-{CAL_CLI_WINDOW.stop} of the "
+              f"fixture): exit 0 in "
               f"{wall!r} s; " + "; ".join(ln.strip() for ln in
                                           proc.stdout.splitlines()))
     cli_fit = cal.FittedParams.load(out)
@@ -1874,7 +1915,7 @@ def small_replay_reference(card):
 # 5,324 jobs over 15 days (the paper's fig7 count), load 0.9
 FIG7_SPEC = dict(n_jobs=5324, duration_s=15 * 86400.0, load=0.9,
                  trace_len=1, n_accounts=64, mean_wall_s=7200.0, seed=42)
-FIG7_SEQ_T1 = 24 * 3600.0    # the replayed window (cut from 15 days)
+FIG7_SEQ_T1 = 12 * 3600.0    # the replayed window (cut from 15 days)
 FIG7_PLUGIN_T1 = 6 * 3600.0  # fig7_external.py's plugin window
 FIG7_NDJSON_T1 = 3600.0      # the NDJSON-pinned peer's window
 FIG7_GRID_T1 = 3600.0        # the grid external_step run
@@ -2103,25 +2144,31 @@ def small_external_reference(card):
           f"plugin and sequential mode on the card match the CPU path, "
           f"schedules exact, floats within 1e-4")
 
+def cli_process(label, args, timeout=600):
+    """The port's simulate CLI as a process on the card, under --json;
+    returns (its JSON document, wall seconds, its progress log)."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.simulate", *args,
+         "--json"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise SystemExit(f"CLI {label} exited {proc.returncode}: "
+                         f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout), wall, proc.stderr
+
 def external_cli(card):
     """The CLI's external flags on the card, as processes, 1 h each:
     ``--scheduler fastsim`` and the reference peer in plugin mode."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    base = [sys.executable, "-m", "repro_torch.launch.simulate", "--system",
-            "frontier", "-t", "1h", "--quiet", "--json"]
+    base = ["--system", "frontier", "-t", "1h"]
     peer = " ".join(FIG7_PEER)
     for label, extra in (("--scheduler fastsim", ["--scheduler", "fastsim"]),
                          ("--external-cmd (plugin)",
                           ["--external-cmd", peer, "--external-mode",
                            "plugin"])):
-        t = time.perf_counter()
-        proc = subprocess.run(base + extra, cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise SystemExit(f"CLI {label} exited {proc.returncode}: "
-                             f"{proc.stderr[-3000:]}")
-        doc = json.loads(proc.stdout)
+        doc, wall, _ = cli_process(label, base + extra)
         runs = {k: v for k, v in doc.items() if k != "bridge"}
         (name, s), = runs.items()
         if not (0.0 < s["avg_util"] <= 1.0 and 1.0 < s["avg_pue"] < 1.5):
@@ -2135,6 +2182,295 @@ def external_cli(card):
               f"avg_pue={s['avg_pue']:.5f}"
               + (f"; bridge polls {bridge['polls']}, peer wire "
                  f"{bridge['peer']['wire']}" if bridge else ""))
+
+# ---------------------------------------------------------------------------
+# fig8: the collect-then-redeem incentive workflow through the CLI, on
+# Marconi100; the CLI's other flags and the sharded sweep at Frontier's
+# width.
+# ---------------------------------------------------------------------------
+# marconi100-incentives-6h: benchmarks/fig8_incentives.py's backlog (1,500
+# jobs over a day, seed 8) at full width, 6 h (cut from fig8's 0.8 day)
+FIG8_DATA = ["--system", "marconi100", "--jobs", "1500", "--days", "1",
+             "--seed", "8"]
+FIG8_T, FIG8_T1 = "6h", 6 * 3600.0
+FIG8_REDEEM = ["acct_avg_power", "acct_low_avg_power", "acct_edp",
+               "acct_fugaku_pts"]
+FIG8_SWEEP = [f"{p}:first-fit" for p in FIG8_REDEEM]
+FIG8_TOP = 8                 # fig8's favored accounts: the top 8 by rank
+# the sharded sweep's window: 120 steps (cut from 1 h for the script's
+# time; the split's identity does not depend on the window)
+SHARD_T1 = 1800.0
+
+def read_stats(path):
+    """stats.out as {name: value}."""
+    rows = {}
+    for line in path.read_text().splitlines():
+        k, v = line.split(" : ")
+        rows[k.strip()] = float(v.replace(",", ""))
+    return rows
+
+def run_dirs(out, doc, labels, log):
+    """The run directories a CLI call wrote under ``out``, in the order of
+    its runs (``labels``), as its progress log names them ("output -> DIR"
+    after each run), each one's stats.out checked against that run's
+    summary in the JSON document."""
+    dirs = [pathlib.Path(d) for d in re.findall(r"^output -> (.+)$", log,
+                                                re.M)]
+    if len(dirs) != len(labels) or sorted(dirs) != sorted(out.iterdir()):
+        raise SystemExit(f"{out}: the log names {dirs} for the runs "
+                         f"{labels}; the directory holds "
+                         f"{sorted(out.iterdir())}")
+    for label, d in zip(labels, dirs):
+        want = {k: float(f"{v:,.3f}".replace(",", ""))
+                for k, v in doc[label].items()}
+        if read_stats(d / "stats.out") != want:
+            raise SystemExit(f"{d}/stats.out is not the summary of {label}")
+    return dirs
+
+def job_history(d):
+    """job_history.csv as (start f64[J], account i64[J], state i64[J])."""
+    with open(d / "job_history.csv") as f:
+        rows = list(csv.DictReader(f))
+    return (np.array([float(r["start"]) for r in rows]),
+            np.array([int(r["account"]) for r in rows]),
+            np.array([int(r["state"]) for r in rows]))
+
+def favored_start_advantage(policy, ledger, account, start):
+    """benchmarks/fig8_incentives.py's metric: the mean start of the
+    other accounts' jobs minus that of the top 8 accounts' by the
+    policy's own ranking of the collected ledger (started jobs only; 0
+    when either set is empty, as there). Returns (it, the top accounts'
+    started jobs)."""
+    pts = np.asarray(ledger["fugaku_pts"], np.float32)
+    avg_pw = np.asarray(ledger["power_sum"], np.float32) / np.maximum(
+        np.asarray(ledger["jobs_done"], np.float32), 1.0)
+    rank = {"acct_avg_power": -avg_pw, "acct_low_avg_power": avg_pw,
+            "acct_edp": np.asarray(ledger["edp"], np.float32),
+            "acct_fugaku_pts": -pts}[policy]
+    top = np.argsort(rank)[:FIG8_TOP]
+    started = np.isfinite(start)
+    m_top = np.isin(account, top) & started
+    m_rest = ~np.isin(account, top) & started
+    adv = float(start[m_rest].mean() - start[m_top].mean()) \
+        if m_top.any() and m_rest.any() else 0.0
+    return adv, int(m_top.sum())
+
+def manifest_rate(path, n_steps):
+    """(run wall seconds, steps/s) from a CLI call's manifest."""
+    wall = json.loads(path.read_text())["wall_s"]
+    return wall, n_steps / wall
+
+def incentives_path(card, tmp):
+    """marconi100-incentives-6h: fig8's workflow as two CLI processes on
+    the card, collect (replay, --accounts -o) then redeem (the four
+    acct_* policies under first-fit, --accounts-json), each redeem row
+    held against the same sweep run in process from empty ledgers, one
+    fused_cooling launch a step."""
+    system = get_system("marconi100")
+    n_steps = int(round(FIG8_T1 / system.dt))
+    print(f"incentives path marconi100-incentives-6h: N={system.n_nodes} "
+          f"G={system.cooling.n_groups} steps={n_steps}; {' '.join(FIG8_DATA)}")
+    col = tmp / "collect"
+    doc, wall, log = cli_process("collect", FIG8_DATA + [
+        "--policy", "replay", "-t", FIG8_T, "--accounts", "-o", str(col),
+        "--manifest", str(tmp / "collect.json")])
+    (cdir,) = run_dirs(col, doc, ["replay:none"], log)
+    if doc["output_dir"] != str(cdir):
+        raise SystemExit(f"collect: output_dir {doc['output_dir']}")
+    ledger = json.loads((cdir / "accounts.json").read_text())
+    start, account, state = job_history(cdir)
+    done = int((state == T.DONE).sum())
+    if sum(ledger["jobs_done"]) != done or done < 1:
+        raise SystemExit(f"collect: the ledger counts "
+                         f"{sum(ledger['jobs_done'])} jobs done, "
+                         f"job_history.csv {done}")
+    run_s, rate = manifest_rate(tmp / "collect.json", n_steps)
+    print(f"[{card}] collect (replay, --accounts -o): process {wall!r} s, "
+          f"run {run_s!r} s = {rate!r} steps/s; {done} jobs done = the "
+          f"ledger's jobs_done ({len(ledger['jobs_done'])} accounts), "
+          f"{len(start)} jobs in job_history.csv")
+
+    red = tmp / "redeem"
+    doc, wall, log = cli_process("redeem", FIG8_DATA + [
+        "-t", FIG8_T, "--sweep", *FIG8_SWEEP, "--accounts-json",
+        str(cdir / "accounts.json"), "--accounts", "-o", str(red),
+        "--manifest", str(tmp / "redeem.json")])
+    rdirs = run_dirs(red, doc, FIG8_SWEEP, log)
+    run_s, rate = manifest_rate(tmp / "redeem.json", n_steps)
+    print(f"[{card}] redeem ({len(FIG8_SWEEP)} acct_* policies, "
+          f"--accounts-json): process {wall!r} s, run {run_s!r} s = "
+          f"{rate!r} steps/s")
+
+    # the same sweep in process from empty ledgers, counted
+    js = loaders.load("marconi100", n_jobs=1500, days=1.0, seed=8)
+    js.assign_prepop_placement(0.0, system.n_nodes)
+    table = js.to_table()
+    scens = [T.Scenario.make(p, "first-fit") for p in FIG8_REDEEM]
+    (cold, _), cold_s, launches = run_counted(lambda: eng.simulate_sweep(
+        system, table, scens, 0.0, FIG8_T1))
+    if launches["fused_cooling"] != n_steps or launches["group_power"] != 0:
+        raise SystemExit(f"cold redeem of {n_steps} steps launched "
+                         f"{launches}")
+    print(f"[{card}] cold redeem in process (empty ledgers): {cold_s!r} s = "
+          f"{n_steps / cold_s!r} steps/s, launches {launches}")
+    # job_history.csv prints whole seconds
+    cold_start = np.array([[float(f"{v:.0f}") for v in row] for row in
+                           cold.start.cpu().numpy()[:, :len(js)]])
+    differ = {}
+    for i, (p, d) in enumerate(zip(FIG8_REDEEM, rdirs)):
+        w_start, w_account, w_state = job_history(d)
+        if not np.array_equal(w_account, np.asarray(js.account)):
+            raise SystemExit(f"redeem {p}: another backlog than the cold run's")
+        n_moved = int((w_start != cold_start[i]).sum())
+        differ[p] = n_moved > 0
+        folded = sum(json.loads((d / "accounts.json").read_text())[
+            "jobs_done"]) - sum(ledger["jobs_done"])
+        if folded != int((w_state == T.DONE).sum()):
+            raise SystemExit(f"redeem {p}: the ledger gained {folded} jobs, "
+                             f"job_history.csv completed "
+                             f"{int((w_state == T.DONE).sum())}: the warm "
+                             f"ledger did not start it")
+        s = doc[f"{p}:first-fit"]
+        warm, n_top = favored_start_advantage(p, ledger, w_account, w_start)
+        cold_adv, _ = favored_start_advantage(p, ledger, w_account,
+                                              cold_start[i])
+        print(f"  [{card}] {p}:first-fit: favored_start_advantage_s warm "
+              f"{warm!r}, cold {cold_adv!r}, warm - cold {warm - cold_adv!r} "
+              f"({n_top} started jobs of the top {FIG8_TOP} accounts); "
+              f"{n_moved} jobs start otherwise than from empty ledgers; "
+              f"jobs_completed={s['jobs_completed']:.0f} "
+              f"avg_wait_s={s['avg_wait_s']:.1f} "
+              f"avg_util={s['avg_util']:.4f} avg_pue={s['avg_pue']:.5f}")
+    same = [p for p, d in differ.items() if not d]
+    print(f"incentives: the warm redeem differs from the cold one in start "
+          f"times for {[p for p, d in differ.items() if d]}; not for {same}")
+    if len(same) == len(FIG8_REDEEM):
+        raise SystemExit("incentives: no redeem row differs from the cold "
+                         "sweep: the collected ledger did not reach the "
+                         "engine")
+    return launches
+
+def frontier_flags_cli(card, tmp):
+    """The CLI's other flags at Frontier's width, one process: four halls,
+    two cells of hall 0 offline, a 6 h fast-forward, a 1 h sweep, -o."""
+    out = tmp / "frontier"
+    labels = ["fcfs:easy", "sjf:first-fit"]
+    doc, wall, log = cli_process("frontier flags", [
+        "--system", "frontier", "--halls", "4", "--cells-offline", "2,0,0,0",
+        "-ff", "6h", "-t", "1h", "--sweep", *labels, "-o", str(out)])
+    dt = get_system("frontier").dt
+    for label, d in zip(labels, run_dirs(out, doc, labels, log)):
+        h = np.load(d / "history.npz")
+        t, cells = h["t"], h["cells_online"]
+        # a row's t is its step's start: the first is t0, as in the
+        # reference's history
+        if t[0] != 6 * 3600.0 or t[-1] != 7 * 3600.0 - dt or len(t) != 240:
+            raise SystemExit(f"frontier flags {label}: t from {t[0]} to "
+                             f"{t[-1]} over {len(t)} steps")
+        if cells.shape != (240, 4) or not (cells[:, 1:] - cells[:, :1]
+                                           == 2.0).all():
+            raise SystemExit(f"frontier flags {label}: cells_online "
+                             f"{cells.min(0)}..{cells.max(0)}")
+        s = doc[label]
+        if not (0.0 < s["avg_util"] <= 1.0 and 1.0 < s["avg_pue"] < 1.5):
+            raise SystemExit(f"frontier flags {label}: summary {s}")
+        print(f"[{card}] CLI frontier --halls 4 --cells-offline 2,0,0,0 -ff "
+              f"6h -t 1h {label}: t {float(t[0])!r}..{float(t[-1])!r} s, "
+              f"cells_online "
+              f"{cells[0].tolist()} at every step; "
+              f"jobs_completed={s['jobs_completed']:.0f} "
+              f"avg_util={s['avg_util']:.4f} avg_pue={s['avg_pue']:.5f}")
+    print(f"[{card}] CLI frontier flags: process {wall!r} s")
+
+def sharded_path(card):
+    """simulate_sweep_sharded on one card: frontier-sweep-3h's eight
+    scenarios for 30 min as two chunks on cuda:0, and on every
+    visible card, each bit for bit simulate_sweep."""
+    system, table = frontier_case()
+    scens = [T.Scenario.make(p, b) for p, b in SWEEP]
+    n_steps = int(round(SHARD_T1 / system.dt))
+    runs = {"simulate_sweep": (lambda: eng.simulate_sweep(
+                system, table, scens, 0.0, SHARD_T1), 1),
+            "sharded cuda:0 x 2": (lambda: eng.simulate_sweep_sharded(
+                system, table, scens, 0.0, SHARD_T1,
+                devices=["cuda:0", "cuda:0"]), 2),
+            "sharded devices=None": (lambda: eng.simulate_sweep_sharded(
+                system, table, scens, 0.0, SHARD_T1), 1)}
+    out, counts = {}, {}
+    for label, (run, chunks) in runs.items():
+        out[label], wall, counts[label] = run_counted(run)
+        if counts[label]["fused_cooling"] != chunks * n_steps or \
+                counts[label]["group_power"] != 0:
+            raise SystemExit(f"{label}: {n_steps} steps launched "
+                             f"{counts[label]}")
+        print(f"[{card}] {label}: {n_steps} steps x {len(scens)} scenarios "
+              f"in {wall!r} s = {n_steps / wall!r} steps/s, fused_cooling "
+              f"{counts[label]['fused_cooling']}")
+    ref = out.pop("simulate_sweep")
+    for label, (f, h) in out.items():
+        if not (trees_equal(ref[0], f) and trees_equal(ref[1], h)):
+            raise SystemExit(f"{label} differs from simulate_sweep")
+        if f.t.device != ref[0].t.device:
+            raise SystemExit(f"{label}: the result lies on {f.t.device}")
+    print(f"sharded sweep: two chunks on one card and "
+          f"devices=None equal simulate_sweep bit for bit (final state and "
+          f"every telemetry row); multi-card splits are not run here")
+    return counts
+
+def small_incentives_reference(card, tmp):
+    """fig8's workflow through the CLI on the 64-node test system, in
+    process, on the card against the port's CPU path: ledgers' job
+    counts, schedules and job_history.csv exact, floats within 1e-4."""
+    from repro_torch.launch import simulate as cli
+    base = ["--system", "marconi100", "--scale", "64", "--jobs", "48",
+            "--seed", "8", "--days", "0.1", "-t", "1h", "--json",
+            "--accounts"]
+    dirs = {}
+    for dev in ("cuda", "cpu"):
+        col, red = tmp / f"small-{dev}-collect", tmp / f"small-{dev}-redeem"
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(base + ["-o", str(col), "--device", dev])
+        (cdir,) = col.iterdir()
+        buf, log = io.StringIO(), io.StringIO()
+        grab = logging.StreamHandler(log)
+        logging.getLogger("repro_torch").addHandler(grab)
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(base + ["-ff", "1h", "--accounts-json",
+                                 str(cdir / "accounts.json"), "-o", str(red),
+                                 "--device", dev, "--sweep", *FIG8_SWEEP])
+        finally:
+            logging.getLogger("repro_torch").removeHandler(grab)
+        dirs[dev] = [cdir] + run_dirs(red, json.loads(buf.getvalue()),
+                                      FIG8_SWEEP, log.getvalue())
+    bitwise = True
+    for label, g, c in zip(["collect"] + FIG8_SWEEP, dirs["cuda"],
+                           dirs["cpu"]):
+        if (g / "job_history.csv").read_text() != \
+                (c / "job_history.csv").read_text():
+            raise SystemExit(f"small incentives {label}: job_history.csv "
+                             f"differs between the card and the CPU")
+        ga = json.loads((g / "accounts.json").read_text())
+        ca = json.loads((c / "accounts.json").read_text())
+        if ga["jobs_done"] != ca["jobs_done"]:
+            raise SystemExit(f"small incentives {label}: jobs_done differs")
+        for k in ca:
+            np.testing.assert_allclose(ga[k], ca[k], rtol=1e-4, err_msg=(
+                f"small incentives {label} accounts {k}"))
+        bitwise &= ga == ca
+        gh, ch = np.load(g / "history.npz"), np.load(c / "history.npz")
+        if set(gh.files) != set(ch.files):
+            raise SystemExit(f"small incentives {label}: history keys")
+        for k in ch.files:
+            np.testing.assert_allclose(
+                gh[k], ch[k], rtol=1e-4,
+                atol=1e-6 if k == "throttle_frac" else 1e-4,
+                err_msg=f"small incentives {label} {k}")
+    print(f"[{card}] small incentives reference (marconi100 x64, 48 jobs, "
+          f"collect 1 h, redeem 4 acct_* policies 1 h after -ff 1h, through "
+          f"the CLI in process): card = CPU, job_history.csv and jobs_done "
+          f"exact, ledgers and history within 1e-4; ledgers bit-identical="
+          f"{bitwise}")
 
 # ---------------------------------------------------------------------------
 # The LM serving path's kernels: flash attention, WKV, SSD.
@@ -2585,7 +2921,7 @@ def main():
     lm = [flash_phase(card), wkv_phase(card), ssd_phase(card)]
     elapsed("build and kernel checks")
     main_path(card, fused)
-    elapsed("frontier-sweep-6h")
+    elapsed("frontier-sweep-3h")
     grid_row0, grid_steps_s = grid_path(card, group)
     elapsed("frontier-grid-6h")
     events_path(card, grid_row0, grid_steps_s)
@@ -2604,7 +2940,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="replay") as tmp:
         tmp = pathlib.Path(tmp)
         npz, wx = replay_path(card, tmp)
-        elapsed("frontier-replay-6h")
+        elapsed("frontier-replay-3h")
         replay_cli(card, npz, wx, tmp)
         elapsed("the replay CLI")
         calibrate_path(card, tmp)
@@ -2615,6 +2951,16 @@ def main():
     elapsed("fig7")
     external_cli(card)
     elapsed("the external CLI")
+    with tempfile.TemporaryDirectory(prefix="incentives") as tmp:
+        tmp = pathlib.Path(tmp)
+        fig8 = incentives_path(card, tmp)
+        elapsed("marconi100-incentives-6h")
+        frontier_flags_cli(card, tmp)
+        elapsed("the frontier flags CLI")
+        sharded = sharded_path(card)
+        elapsed("the sharded sweep")
+        small_incentives_reference(card, tmp)
+        elapsed("the small incentives reference")
     loaded = sorted(m for m in ("pandas", "pyarrow") if m in sys.modules)
     if loaded:
         raise SystemExit(f"the trace and calibration phases imported "
@@ -2632,6 +2978,11 @@ def main():
     print("fig7 launches: " + "; ".join(
         f"{k}: fused_cooling {v['fused_cooling']}, group_power "
         f"{v['group_power']}" for k, v in fig7.items()))
+    print(f"incentives launches (cold redeem in process): fused_cooling "
+          f"{fig8['fused_cooling']}, group_power {fig8['group_power']}; "
+          f"sharded launches: " + "; ".join(
+              f"{k}: fused_cooling {v['fused_cooling']}"
+              for k, v in sharded.items()))
     print(f"session launches: group_power {session['group_power']}, "
           f"fused_cooling {session['fused_cooling']}; wire launches: "
           f"group_power {wire['group_power']}, fused_cooling "

@@ -11,15 +11,27 @@ account's jobs), the values are gathered into that layout and summed in
 float64 along M, then rounded to float32. The result is the same on
 every run and for every batch size, and within float32 rounding of the
 reference's ``segment_sum``.
+
+A ledger shorter than the backlog's account ids behaves as the
+reference's: the folds drop the jobs of ids past its end (as
+``segment_sum`` drops out-of-range segments), and the policy keys read
+its last entry for them (as JAX clamps an out-of-range gather).
+
+Ledgers persist as the reference's JSON (``save_json``/``load_json``:
+one list of floats a field), so a ledger collected by either package
+warm-starts the other's run (the paper's ``--accounts`` /
+``--accounts-json``: collect in one run, redeem in the next).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.incentives import fugaku_points
 from repro_torch.core.types import AccountStats, JobTable
 from repro_torch.systems.config import SystemConfig
@@ -118,3 +130,33 @@ def accrue_grid(table: JobTable, accounts: AccountStats,
         accounts,
         carbon_kg=accounts.carbon_kg + kwh * carbon_gkwh[:, None] * 1e-3,
         cost=accounts.cost + kwh * price_kwh[:, None])
+
+
+# --- persistence (the paper's "--accounts / --accounts-json": collect in one
+# run, redeem in the next) ---------------------------------------------------
+def to_json_dict(accounts: AccountStats) -> dict:
+    """One [A] ledger as {field: list of floats}, the reference's JSON."""
+    return {f.name: getattr(accounts, f.name).detach().cpu().numpy().tolist()
+            for f in dataclasses.fields(AccountStats)}
+
+
+def from_json_dict(d: dict, device="cuda") -> AccountStats:
+    """An [A] float32 ledger on ``device``; the fields of a ledger saved
+    before the grid fields existed (``carbon_kg``, ``cost``) are zeros."""
+    dev = resolve_device(device)
+    n = len(next(iter(d.values())))
+    zeros = [0.0] * n
+    return AccountStats(**{
+        f.name: torch.tensor(d.get(f.name, zeros), dtype=torch.float32,
+                             device=dev)
+        for f in dataclasses.fields(AccountStats)})
+
+
+def save_json(accounts: AccountStats, path) -> None:
+    with open(path, "w") as f:
+        json.dump(to_json_dict(accounts), f)
+
+
+def load_json(path, device="cuda") -> AccountStats:
+    with open(path) as f:
+        return from_json_dict(json.load(f), device)

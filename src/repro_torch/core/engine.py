@@ -49,6 +49,8 @@ external scheduler decides the placements between steps
 Entry points (``simulate``, ``simulate_static``, ``simulate_sweep`` and
 the segment functions) run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card a CUDA request raises.
+``simulate_sweep_sharded`` splits a sweep's rows across ``devices``
+(every visible card by default), one ``simulate_sweep`` a chunk.
 """
 from __future__ import annotations
 
@@ -595,6 +597,57 @@ def simulate_sweep(system: SystemConfig, table: T.JobTable,
                  _fresh(system, table, len(scens), t0, t1, accounts,
                         num_accounts, events, dev),
                  _n_steps(system, t0, t1), signals, weather, events, dev)
+
+
+def simulate_sweep_sharded(system: SystemConfig, table: T.JobTable,
+                           scens: list[T.Scenario], t0: float, t1: float,
+                           accounts: T.AccountStats | None = None,
+                           num_accounts: int = 64,
+                           signals: gsig.GridSignals | None = None,
+                           weather=None,
+                           events: ev_mod.EventConfig | None = None,
+                           devices=None) -> Tuple[T.SimState, T.StepRecord]:
+    """``simulate_sweep`` with the scenario rows split across devices.
+
+    ``devices`` lists where to run (default: every visible card). The
+    rows are cut into contiguous chunks, one a device in order (a device
+    gets none when there are fewer scenarios than devices), and each
+    chunk is a ``simulate_sweep`` on its device with its own copy of the
+    job table, the initial state (a warm ledger included) and the grid
+    signals; per-scenario weather (a list) is split with the scenarios.
+    The chunks run one after another from this thread. The engine is
+    bound by the host's dispatch, so a split issues the same launches
+    per row and gains no speed on one host; what it spreads is the rows'
+    device memory. Rows never communicate and a row equals the row run
+    alone, so any split equals one batch bit for bit. The histories and
+    final states are concatenated on the first device. One device is
+    exactly ``simulate_sweep`` there. A device that is missing raises:
+    the split never falls back to fewer devices or to the CPU.
+    """
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())] \
+            or ["cuda"]
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("need at least one device")
+    if len(devs) == 1:
+        return simulate_sweep(system, table, scens, t0, t1, accounts,
+                              num_accounts, signals, weather, events,
+                              devs[0])
+    per_row = isinstance(weather, (list, tuple))
+    if per_row and len(weather) != len(scens):
+        raise ValueError(f"need one weather trace per scenario: "
+                         f"{len(weather)} != {len(scens)}")
+    S, n = len(scens), len(devs)
+    cuts = [i * (S // n) + min(i, S % n) for i in range(n + 1)]
+    parts = [simulate_sweep(system, table, scens[lo:hi], t0, t1, accounts,
+                            num_accounts, signals,
+                            weather[lo:hi] if per_row else weather, events,
+                            dev)
+             for dev, lo, hi in zip(devs, cuts[:-1], cuts[1:]) if lo < hi]
+    on_first = lambda x: x.to(devs[0])
+    return (T.cat([T.tree_map(on_first, f) for f, _ in parts]),
+            T.cat([T.tree_map(on_first, h) for _, h in parts]))
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,9 @@ def policy_key(table: T.JobTable, accounts: T.AccountStats,
         thermal = cmodel.thermal_neutral(S, device=table.submit.device)
     if grid is None:
         grid = gsig.now_neutral(S, device=table.submit.device)
-    acct = table.account.long()
+    # an id past a short ledger reads its last entry, as JAX clamps an
+    # out-of-range gather
+    acct = table.account.long().clamp(max=accounts.jobs_done.shape[-1] - 1)
     submit = table.submit.expand(S, -1)
 
     def per_acct(x):                  # [S, A] ledger -> [S, J] per job

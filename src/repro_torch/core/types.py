@@ -94,21 +94,31 @@ def row(obj, i: int):
     return tree_map(lambda x: x[i], obj)
 
 
-def stack(objs: list):
-    """Stack unbatched dataclasses of one structure on a new leading
-    scenario axis (the inverse of ``row``). A field that is None in the
-    first must be None in all of them."""
+def _join(objs: list, fn: Callable):
     kw = {}
     for f in dataclasses.fields(objs[0]):
         vs = [getattr(o, f.name) for o in objs]
         if vs[0] is None:
             v = None
         elif dataclasses.is_dataclass(vs[0]):
-            v = stack(vs)
+            v = _join(vs, fn)
         else:
-            v = torch.stack(vs)
+            v = fn(vs)
         kw[f.name] = v
     return type(objs[0])(**kw)
+
+
+def stack(objs: list):
+    """Stack unbatched dataclasses of one structure on a new leading
+    scenario axis (the inverse of ``row``). A field that is None in the
+    first must be None in all of them."""
+    return _join(objs, torch.stack)
+
+
+def cat(objs: list):
+    """Concatenate batched dataclasses of one structure, on one device,
+    along the scenario axis."""
+    return _join(objs, torch.cat)
 
 
 def _tensor(a, device) -> torch.Tensor:

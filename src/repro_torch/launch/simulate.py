@@ -1,10 +1,32 @@
-"""S-RAPS CLI for the PyTorch port (a subset of ``repro.launch.simulate``).
+"""S-RAPS CLI for the PyTorch port (``repro.launch.simulate``'s surface
+but the ML policy and ES training).
 
-  python -m repro_torch.launch.simulate --system frontier -t 6h \\
-      --sweep fcfs:easy sjf:none thermal_aware:easy
+  python -m repro_torch.launch.simulate --system marconi100 -t 61000 \
+      -ff 4381000 --policy fcfs --backfill easy -o out/
 
---system selects the synthetic dataloader, --policy/--backfill the built-in
-scheduler, --sweep several policy[:backfill] scenarios run as one batch.
+--system selects the synthetic dataloader (--jobs, --seed, and --days for
+the horizon to generate, by default 1.25x the run's end and at least
+half a day), --scale N scales it to N nodes and --halls N splits its
+cooling plant into N halls. -ff/--fastforward starts the run at that
+offset (s/m/h/d suffix) and -t/--time runs that long after it;
+--cells-offline takes tower cells out for maintenance, a number for
+every hall or a comma list per hall ('2,0,0,0'). --smoke is a CI-sized
+run (64 nodes, at most 48 jobs, 30 minutes). --policy/--backfill select
+the built-in scheduler, --sweep several policy[:backfill] scenarios run
+as one batch on --device (``engine.simulate_sweep_sharded`` on that one
+device, which is ``simulate_sweep``: the reference splits the rows
+across every device, but the port's engine is bound by the host's
+dispatch, so a split from one host gains nothing).
+
+Incentives (paper §4.3): --accounts writes each run's account ledger as
+accounts.json under -o (collect), --accounts-json warm-starts every
+built-in engine path from such a ledger, written by either package
+(redeem). -o/--output [DIR] (default simulation_results) writes one
+directory a run holding history.npz (every telemetry row), stats.out,
+job_history.csv and, with --accounts, accounts.json, in the JAX CLI's
+formats. --policy ml, an ml sweep entry and --ml-alpha are refused: the
+ML layer's scores are not ported.
+
 --scheduler fastsim|scheduleflow couples an in-process event-based
 external simulator (``repro_torch.core.external``: FastSim schedules the
 whole backlog first and the twin replays it, ScheduleFlow is polled every
@@ -19,7 +41,8 @@ The failure and demand-response flags (--failure-rate, --cdu-failure-rate,
 --cell-failure-rate, --failure-corr, --failure-seed, --repair,
 --no-requeue, --dr-announce, --dr-notice, --dr-duration, --dr-cap-mw)
 turn the event layer on, as in the JAX CLI; a DR event without a grid
-trace runs under neutral grid signals. The flight recorder is the JAX
+trace runs under neutral grid signals, and --dr-announce counts from the
+run's start. The flight recorder is the JAX
 CLI's: --manifest (a schema-versioned run manifest), --events (the NDJSON
 event log), --metrics (per-step telemetry frames to a file, tcp:host:port
 or unix:/path), --quiet and --json; --profile DIR records a
@@ -45,12 +68,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pathlib
+import secrets
 import sys
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import obs, resolve_device
+from repro_torch.core import accounts as acct_mod
 from repro_torch.core import engine as eng
 from repro_torch.core import external as ext
 from repro_torch.core import stats as stats_mod
@@ -125,8 +151,10 @@ def _failure_kwargs(args, t0):
     return kw
 
 
-# subcommands of the JAX CLI that wait for the port of their layer
-UNPORTED = {"train": "ES policy training (ROADMAP item 13)"}
+# layers of the JAX CLI that wait for their port: the train subcommand,
+# and the ML policy's scores (--policy ml, --ml-alpha)
+UNPORTED = {"train": "ES policy training (ROADMAP item 13)",
+            "ml": "the ML scheduling layer (ROADMAP item 10)"}
 
 
 def _trace_digests(args) -> dict:
@@ -153,7 +181,7 @@ def main(argv=None):
         # (repro_torch.traces.calibrate, docs/datasets.md)
         from repro_torch.traces import calibrate as calibrate_cli
         return calibrate_cli.main(argv[1:])
-    if argv[:1] and argv[0] in UNPORTED:
+    if argv[:1] == ["train"]:
         raise SystemExit(f"simulate {argv[0]}: {UNPORTED[argv[0]]} is not "
                          f"ported to repro_torch yet")
     ap = argparse.ArgumentParser(description=__doc__)
@@ -162,10 +190,21 @@ def main(argv=None):
                     help="scale the system to N nodes")
     ap.add_argument("--halls", type=int, default=0,
                     help="split the cooling plant into N halls")
+    ap.add_argument("--cells-offline", default=None,
+                    help="tower cells out for maintenance: a number "
+                         "(every hall) or comma list (per hall), e.g. "
+                         "'2,0,0,0'")
     ap.add_argument("--jobs", type=int, default=1000)
+    ap.add_argument("--days", type=float, default=None,
+                    help="dataset horizon to generate (days)")
+    ap.add_argument("-ff", "--fastforward", default="0", type=str,
+                    help="simulation start offset (s/m/h/d suffix)")
     ap.add_argument("-t", "--time", default="6h", type=str,
                     help="simulated duration (s/m/h/d suffix)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="CI-sized run: scale to 64 nodes, <=48 jobs, "
+                         "30 minutes simulated")
     # real-trace ingestion (repro_torch.traces, docs/datasets.md)
     ap.add_argument("--trace", nargs="+", default=None, metavar="PATH",
                     help="replace the synthetic --system dataset with a "
@@ -192,7 +231,23 @@ def main(argv=None):
                          "schedulers, firstfit for external peers; an "
                          "explicit value always wins)")
     ap.add_argument("--sweep", nargs="*", default=None,
-                    help="policy[:backfill] list to run as one batch")
+                    help="policy[:backfill] list to run as one batch on "
+                         "--device")
+    ap.add_argument("--accounts", action="store_true",
+                    help="write each run's account ledger as "
+                         "accounts.json under -o (the collect phase of an "
+                         "incentive)")
+    ap.add_argument("--accounts-json", default=None, metavar="FILE",
+                    help="warm-start the ledgers from this accounts.json "
+                         "(the redeem phase)")
+    ap.add_argument("--ml-alpha", default=None,
+                    help="scoring alpha for --policy ml (refused: the ML "
+                         "layer is not ported)")
+    ap.add_argument("-o", "--output", default=None, nargs="?",
+                    const="simulation_results",
+                    help="write history.npz, stats.out, job_history.csv "
+                         "(and accounts.json) into one directory a run "
+                         "under this one")
     ap.add_argument("--failure-rate", type=float, default=None,
                     help="per-node failure hazard (failures per node-day); "
                          "enables the stochastic failure layer")
@@ -259,9 +314,19 @@ def main(argv=None):
     obs.add_output_flags(ap)
     args = ap.parse_args(argv)
 
+    _refuse_ml(args)
+    if args.smoke:
+        args.scale = args.scale or 64
+        args.jobs = min(args.jobs, 48)
+        args.time = "30m"
     sys_ = build_system(args.system, args.scale, args.halls)
-    t0, t1 = 0.0, _parse_time(args.time)
-    days = max((t1 / 86400.0) * 1.25, 0.5)
+    cells_offline = 0.0
+    if args.cells_offline:
+        parts = [float(x) for x in args.cells_offline.split(",")]
+        cells_offline = parts[0] if len(parts) == 1 else tuple(parts)
+    t0 = _parse_time(args.fastforward)
+    t1 = t0 + _parse_time(args.time)
+    days = args.days or max((t1 / 86400.0) * 1.25, 0.5)
     if args.trace:
         js = loaders.load_trace(args.trace, prof_dt=sys_.prof_dt,
                                 cache_dir=args.trace_cache)
@@ -276,6 +341,9 @@ def main(argv=None):
                                t0=t0)
     js.assign_prepop_placement(t0, sys_.n_nodes)
     table = js.to_table(replay_power=args.replay_power)
+    accounts = None
+    if args.accounts_json:
+        accounts = acct_mod.load_json(args.accounts_json, args.device)
     fail_kw = _failure_kwargs(args, t0)
     events = signals = None
     if fail_kw:
@@ -300,6 +368,7 @@ def main(argv=None):
                       "external_mode": args.external_mode,
                       "external_wire": args.external_wire,
                       "halls": args.halls,
+                      "cells_offline": args.cells_offline,
                       "failure_rate_per_day": args.failure_rate,
                       "failure_seed": args.failure_seed,
                       "dr_cap_mw": args.dr_cap_mw, "device": args.device,
@@ -320,8 +389,8 @@ def main(argv=None):
 
     wall0 = time.perf_counter()
     with obs.use(timer):
-        runs, bridge = _run(args, sys_, js, table, t0, t1, fail_kw, signals,
-                            events, weather,
+        runs, bridge = _run(args, sys_, js, table, accounts, t0, t1,
+                            cells_offline, fail_kw, signals, events, weather,
                             recorder.span_listener if recorder else None)
     wall = time.perf_counter() - wall0
     if profiler is not None:
@@ -344,6 +413,10 @@ def main(argv=None):
                    f"{args.device} (sim {t1 - t0:.0f}s in {wall:.1f}s "
                    f"wall) ===\n" + stats_mod.format_stats(s),
                    key=label, value=s)
+        if args.output:
+            out = _write_output(args, js, final, hist, s)
+            rep.info(f"output -> {out}")
+            rep.result_json("output_dir", str(out))
     if sink is not None:
         sink.close()
         rep.info(f"metrics: {sink.n_frames} frames -> {args.metrics}")
@@ -363,6 +436,43 @@ def main(argv=None):
     rep.flush_json()
 
 
+def _refuse_ml(args) -> None:
+    """``--policy ml``, an ``ml`` sweep entry and ``--ml-alpha`` need the
+    ML layer's scores, which the port does not compute: refuse them, as
+    the unported subcommands are refused, rather than rank every job
+    equal under the label ``ml``."""
+    asked = [f for f, on in (
+        ("--policy ml", args.policy == "ml"),
+        ("--sweep ml", any(e.partition(":")[0] == "ml"
+                           for e in args.sweep or ())),
+        ("--ml-alpha", args.ml_alpha is not None)) if on]
+    if asked:
+        raise SystemExit(f"simulate {', '.join(asked)}: {UNPORTED['ml']} "
+                         f"is not ported to repro_torch yet")
+
+
+def _write_output(args, js, final, hist, summary) -> pathlib.Path:
+    """One run's files in a new directory under ``--output``, as the JAX
+    CLI writes them: ``history.npz`` (every telemetry row), ``stats.out``,
+    ``job_history.csv`` and, with ``--accounts``, ``accounts.json``."""
+    out = pathlib.Path(args.output) / secrets.token_hex(4)
+    out.mkdir(parents=True, exist_ok=True)
+    host = lambda x: x.detach().cpu().numpy()
+    np.savez(out / "history.npz",
+             **{f.name: host(getattr(hist, f.name))
+                for f in dataclasses.fields(hist)})
+    (out / "stats.out").write_text(stats_mod.format_stats(summary))
+    start, end, jstate = host(final.start), host(final.end), host(final.jstate)
+    with open(out / "job_history.csv", "w") as f:
+        f.write("job,submit,start,end,nodes,account,state\n")
+        for j in range(len(js)):
+            f.write(f"{j},{js.submit[j]:.0f},{start[j]:.0f},{end[j]:.0f},"
+                    f"{js.nodes[j]},{js.account[j]},{jstate[j]}\n")
+    if args.accounts:
+        acct_mod.save_json(final.accounts, out / "accounts.json")
+    return out
+
+
 def _start_profile(args):
     """A started ``torch.profiler`` over the run: CPU activity, and CUDA
     activity when the run is on the card."""
@@ -376,59 +486,68 @@ def _start_profile(args):
     return prof
 
 
-def _run(args, sys_, js, table, t0, t1, fail_kw, signals, events, weather,
-         on_event=None):
+def _run(args, sys_, js, table, accounts, t0, t1, cells_offline, fail_kw,
+         signals, events, weather, on_event=None):
     """One CLI invocation on the engine. Returns (runs, bridge): ``runs``
     a list of ((policy, backfill), final, hist), one per scenario, and
     ``bridge`` the ``SchedulerBridge`` of an external coupling in plugin
-    mode (its counters feed the manifest), else None. ``weather`` (a
-    measured trace, --weather-trace, or None) drives every scenario's
-    towers; the external couplings model no ambient conditions, so
-    combining them with a weather trace is refused, not ignored."""
+    mode (its counters feed the manifest), else None. ``accounts`` (a
+    warm-start ledger, --accounts-json) reaches every built-in engine
+    path, and ``cells_offline`` every path. ``weather`` (a measured
+    trace, --weather-trace, or None) drives every scenario's towers; the
+    external couplings model no ambient conditions, so combining them
+    with a weather trace is refused, not ignored."""
     external = args.scheduler in ("fastsim", "scheduleflow")
     if weather is not None and (args.external_cmd or args.external_socket
                                 or external):
         raise SystemExit("--weather-trace is not supported with external "
                          "scheduler coupling")
+    # the external peer is the policy; the facility knobs reach the twin
+    ext_scen = T.Scenario.make("replay", cells_offline=cells_offline)
     if args.external_cmd or args.external_socket:
-        return _run_peer(args, sys_, js, t0, t1, on_event)
+        return _run_peer(args, sys_, js, t0, t1, ext_scen, on_event)
     if external:
-        # the external peer is the policy; the facility knobs stay neutral
         bridge = None
         if args.scheduler == "fastsim":
             sched = ext.FastSimLike(policy=args.policy
                                     if args.policy != "replay" else "fcfs")
             final, hist = ext.run_sequential_mode(sys_, js, sched, t0, t1,
+                                                  scen=ext_scen,
                                                   device=args.device)
         else:
             # explicit bridge so its poll counters reach the manifest
             bridge = ext.SchedulerBridge(ext.ScheduleFlowLike(),
                                          on_event=on_event)
             final, hist, _ = ext.run_plugin_mode(sys_, js, bridge, t0, t1,
+                                                 scen=ext_scen,
                                                  device=args.device)
             hist = _record(hist)
         return [((args.policy, "external"), final, hist)], bridge
-    backfill = args.backfill or "none"
-    if args.sweep or fail_kw:
+    kw = dict(signals=signals, weather=weather, events=events)
+    if args.sweep:
         specs = [(p, b or "none") for p, _, b in
-                 (s.partition(":") for s in args.sweep)] if args.sweep \
-            else [(args.policy, backfill)]
-        finals, hists = eng.simulate_sweep(
-            sys_, table, [T.Scenario.make(p, b, **fail_kw)
-                          for p, b in specs], t0, t1,
-            signals=signals, weather=weather, events=events,
-            device=args.device)
+                 (s.partition(":") for s in args.sweep)]
+        # one device: exactly simulate_sweep there (a split across
+        # cards issues the same launches from this one host thread)
+        finals, hists = eng.simulate_sweep_sharded(
+            sys_, table, [T.Scenario.make(p, b, cells_offline=cells_offline,
+                                          **fail_kw) for p, b in specs],
+            t0, t1, accounts, **kw, devices=[args.device])
         return [(spec, T.row(finals, i), T.row(hists, i))
                 for i, spec in enumerate(specs)], None
-    final, hist = eng.simulate_static(sys_, table, args.policy, backfill,
-                                      t0, t1, weather=weather,
-                                      device=args.device)
+    # one scenario; with every knob neutral this is simulate_static
+    backfill = args.backfill or "none"
+    scen = T.Scenario.make(args.policy, backfill, cells_offline=cells_offline,
+                           **fail_kw)
+    final, hist = eng.simulate(sys_, table, scen, t0, t1, accounts, **kw,
+                               device=args.device)
     return [((args.policy, backfill), final, hist)], None
 
 
-def _run_peer(args, sys_, js, t0, t1, on_event):
+def _run_peer(args, sys_, js, t0, t1, scen, on_event):
     """An out-of-process peer (--external-cmd or --external-socket) in
-    plugin or sequential mode; returns ``_run``'s (runs, bridge)."""
+    plugin or sequential mode, the facility knobs from ``scen``; returns
+    ``_run``'s (runs, bridge)."""
     from repro_torch.core import transport as tr
     policy = args.policy if args.policy != "replay" else "fcfs"
     # an explicit --backfill (none included) reaches the peer; only the
@@ -444,12 +563,14 @@ def _run_peer(args, sys_, js, t0, t1, on_event):
             # one-shot coupling: the peer is driven directly (the
             # bridge's poll retries have nothing to wrap here)
             final, hist = ext.run_sequential_mode(sys_, js, peer, t0, t1,
+                                                  scen=scen,
                                                   device=args.device)
         else:
             bridge = ext.SchedulerBridge(
                 peer, ext.BridgeConfig(timeout_s=args.external_timeout),
                 on_event=on_event)
             final, hist, _ = ext.run_plugin_mode(sys_, js, bridge, t0, t1,
+                                                 scen=scen,
                                                  device=args.device)
             hist = _record(hist)
     finally:
