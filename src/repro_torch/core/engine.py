@@ -442,8 +442,8 @@ def _scan(system: SystemConfig, table: T.JobTable, scen: T.Scenario,
                          f"{'lacks' if st.events is None else 'has'} one, "
                          f"events={events!r}")
     backfills = tuple(sorted(set(scen.backfill.tolist())))
-    table = table.to(dev)
     scen = T.tree_map(lambda x: x.to(dev), scen)
+    table = sched.fold_ml_basis(table.to(dev), scen)
     S = scen.policy.shape[0]
     if signals is not None:
         signals = signals.to(dev)

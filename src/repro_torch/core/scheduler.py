@@ -36,11 +36,37 @@ from repro_torch.core import resource_manager as rm
 from repro_torch.core import types as T
 from repro_torch.grid import signals as gsig
 from repro_torch.kernels.power_topo.ref import group_ids
+from repro_torch.ml.scoring import weighted_sum
 from repro_torch.systems.config import SystemConfig
 
 # ---------------------------------------------------------------------------
 # Priority keys (smaller key = scheduled earlier).
 # ---------------------------------------------------------------------------
+def ml_score(table: T.JobTable, scen: T.Scenario) -> torch.Tensor:
+    """The ML key's score, f32[S, J] (higher = earlier): the static part
+    (``table.score``, baked at attach time) plus ``ml_basis @ alpha``
+    with each scenario's alpha (f32[S], one weight for every column, or
+    f32[S, K]), summed as the reference's jitted key
+    (``scoring.weighted_sum``)."""
+    S = scen.policy.shape[0]
+    s = table.score.expand(S, -1)
+    if table.ml_basis is not None:
+        alpha = scen.alpha.reshape(S, 1, -1)        # [S, 1, K or 1]
+        s = s + weighted_sum(table.ml_basis[None], alpha)
+    return s
+
+
+def fold_ml_basis(table: T.JobTable, scen: T.Scenario) -> T.JobTable:
+    """``table`` with ``ml_score`` in place of its score (f32[S, J]) and
+    no basis. The basis and the alphas are fixed over a run, so a runner
+    folds them once instead of summing them again every step; the keys
+    stay bit for bit the same."""
+    if table.ml_basis is None:
+        return table
+    return dataclasses.replace(table, score=ml_score(table, scen),
+                               ml_basis=None)
+
+
 def policy_key(table: T.JobTable, accounts: T.AccountStats,
                scen: T.Scenario,
                thermal: cmodel.ThermalNow | None = None,
@@ -90,6 +116,9 @@ def policy_key(table: T.JobTable, accounts: T.AccountStats,
         return submit + scen.thermal_weight[:, None] * \
             thermal.excess[:, None] * defer_heat
 
+    # ML-guided key (paper §4.4.2): higher score = earlier
+    ml_key = lambda: -ml_score(table, scen)
+
     builders = [
         lambda: table.rec_start.expand(S, -1),     # REPLAY: recorded order
         lambda: submit,                            # FCFS
@@ -101,7 +130,7 @@ def policy_key(table: T.JobTable, accounts: T.AccountStats,
         lambda: per_acct(accounts.edp),            # ACCT_EDP (lower first)
         lambda: per_acct(accounts.ed2p),           # ACCT_ED2P
         lambda: -per_acct(accounts.fugaku_pts),    # ACCT_FUGAKU_PTS
-        lambda: (-table.score).expand(S, -1),      # ML score (higher first)
+        ml_key,                                    # ML score (higher first)
         lambda: grid_key(grid.carbon, grid.carbon_ref,
                          scen.carbon_weight),      # CARBON_AWARE
         lambda: grid_key(grid.price, grid.price_ref,

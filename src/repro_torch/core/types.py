@@ -143,17 +143,6 @@ def _from_arrays(cls, m: Mapping, device, batch: bool):
     return cls(**kw)
 
 
-def _refuse(m: Mapping, what: str, absent=(), neutral=None):
-    """Reject leaves of layers this slice of the port does not run."""
-    for k in absent:
-        if m.get(k) is not None:
-            raise NotImplementedError(f"{what}.{k} is not ported yet")
-    for k, v in (neutral or {}).items():
-        if k in m and not np.all(np.asarray(m[k]) == v):
-            raise NotImplementedError(f"{what}.{k}={np.asarray(m[k])!r}: "
-                                      f"this layer is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Static job table (inputs to the simulation; never mutated by the engine).
 # ---------------------------------------------------------------------------
@@ -171,8 +160,11 @@ class JobTable:
     index (paper §3.2.2). ``power_profile`` is the measured-power replay
     channel (``repro_torch.traces``): recorded per-node watts on the same
     grid, played back in place of the model wherever a sample is >= 0;
-    None turns replay off. The JAX table's ``ml_basis`` belongs to a
-    later slice of the port.
+    None turns replay off. ``ml_basis`` is the ML scoring basis
+    (``repro_torch.ml.scoring.basis`` of each job's predicted features):
+    the ``ml`` key is ``-(score + ml_basis @ Scenario.alpha)``, so one
+    table ranks under a different alpha in every scenario; None ranks on
+    ``score`` alone.
     """
     submit: torch.Tensor       # f32[J] submit time
     limit: torch.Tensor        # f32[J] requested walltime (s)
@@ -182,10 +174,12 @@ class JobTable:
     account: torch.Tensor      # i32[J] issuing account id
     rec_start: torch.Tensor    # f32[J] recorded start time (replay mode)
     first_node: torch.Tensor   # i32[J] recorded first node of contiguous placement
-    score: torch.Tensor        # f32[J] ML / external score (higher = better)
+    score: torch.Tensor        # f32[J] ML / external score (higher = better);
+                               # f32[S, J] once a run folds ml_basis in
     power_prof: torch.Tensor   # f32[J, P] per-node power trace (W)
     util_prof: torch.Tensor    # f32[J, P] utilization trace in [0, 1]
     valid: torch.Tensor        # bool[J] padding mask
+    ml_basis: torch.Tensor | None = None       # f32[J, K] basis, or None
     power_profile: torch.Tensor | None = None  # f32[J, Q] measured W, or None
 
     @property
@@ -202,7 +196,6 @@ class JobTable:
     @staticmethod
     def from_arrays(m: Mapping, device="cpu") -> "JobTable":
         """Build from the JAX ``JobTable``'s leaves (numpy, by field name)."""
-        _refuse(m, "JobTable", absent=("ml_basis",))
         return _from_arrays(JobTable, m, device, batch=False)
 
 
@@ -343,10 +336,6 @@ class StepRecord:
 # ---------------------------------------------------------------------------
 # Per-run scenario parameters (a batch of them rides the S axis).
 # ---------------------------------------------------------------------------
-# knobs of layers the port does not run yet, at their neutral values
-_UNPORTED_KNOBS = {"alpha": 0.0}
-
-
 @dataclass
 class Scenario:
     """What-if knobs of one scenario (0-d tensors) or of a batch (leading
@@ -354,8 +343,10 @@ class Scenario:
     a neutral default. The failure knobs act only when the engine runs
     with ``events=EventConfig(...)``: hazards in 1/s (0 = never fails),
     mean repair ``repair_s``; the demand-response event is off while
-    ``dr_announce_s < 0`` or ``dr_cap_w <= 0``. ML alpha belongs to a
-    later slice of the port."""
+    ``dr_announce_s < 0`` or ``dr_cap_w <= 0``. ``alpha`` weighs the
+    columns of ``JobTable.ml_basis`` in the ``ml`` key (a scalar weighs
+    every column alike); the neutral 0 ranks on ``JobTable.score``
+    alone."""
     policy: torch.Tensor            # i32 POLICY_*
     backfill: torch.Tensor          # i32 BF_*
     acct_weight: torch.Tensor       # f32 weight on account-derived keys
@@ -365,6 +356,7 @@ class Scenario:
     thermal_weight: torch.Tensor    # f32 POLICY_THERMAL strength
     setpoint_delta_c: torch.Tensor  # f32 offset on the supply setpoint (°C)
     cells_offline: torch.Tensor     # f32 (or f32[H]) tower cells offline
+    alpha: torch.Tensor             # f32 (or f32[K]) ML scoring weights
     failure_seed: torch.Tensor      # f32 seed of the failure draws
     node_fail_rate: torch.Tensor    # f32 per-node failure hazard (1/s)
     cdu_fail_rate: torch.Tensor     # f32 per-CDU-group hazard (1/s)
@@ -381,7 +373,7 @@ class Scenario:
              acct_weight: float = 1.0, carbon_weight: float = 1.0,
              price_weight: float = 1.0, cap_scale: float = 1.0,
              thermal_weight: float = 1.0, setpoint_delta_c: float = 0.0,
-             cells_offline=0.0, failure_seed: float = 0.0,
+             cells_offline=0.0, alpha=0.0, failure_seed: float = 0.0,
              node_fail_rate: float = 0.0, cdu_fail_rate: float = 0.0,
              cell_fail_rate: float = 0.0, failure_corr: float = 0.0,
              repair_s: float = 3600.0, dr_announce_s: float = -1.0,
@@ -397,7 +389,7 @@ class Scenario:
             price_weight=f32(price_weight), cap_scale=f32(cap_scale),
             thermal_weight=f32(thermal_weight),
             setpoint_delta_c=f32(setpoint_delta_c),
-            cells_offline=f32(cells_offline),
+            cells_offline=f32(cells_offline), alpha=f32(alpha),
             failure_seed=f32(failure_seed), node_fail_rate=f32(node_fail_rate),
             cdu_fail_rate=f32(cdu_fail_rate),
             cell_fail_rate=f32(cell_fail_rate),
@@ -408,16 +400,14 @@ class Scenario:
     @staticmethod
     def from_arrays(m: Mapping, device="cpu") -> "Scenario":
         """Build from the JAX ``Scenario``'s leaves (numpy, by field name),
-        one scenario or a stacked batch. ML alpha, which the port does not
-        run yet, must sit at its neutral value."""
-        _refuse(m, "Scenario", neutral=_UNPORTED_KNOBS)
+        one scenario or a stacked batch."""
         return _from_arrays(Scenario, m, device, batch=False)
 
 
 def stack_scenarios(scens: list) -> Scenario:
     """Stack scenarios on a leading S axis. Leaves are broadcast to a
-    common shape first, so a scalar ``cells_offline`` stacks against a
-    per-hall vector."""
+    common shape first, so a scalar ``cells_offline`` (or ``alpha``)
+    stacks against a per-hall (per-column) vector."""
     kw = {}
     for f in dataclasses.fields(Scenario):
         xs = [getattr(s, f.name) for s in scens]

@@ -4,9 +4,9 @@ The port's copy of ``repro.datasets.base``: a ``JobSet`` is a numpy
 struct-of-arrays (SWF-style fields plus power/trace channels) and
 ``to_table`` pads and packs it into the fixed-shape tensor ``JobTable``
 the engine consumes, with the JAX package's ``compact_time`` int32 time
-columns and its measured-power replay channel. A ``JobSet`` may carry
-the JAX package's ML scoring basis (a trace NPZ written there holds
-it), but the port's table refuses it: the ML layer is not ported.
+columns, its measured-power replay channel and the ML scoring basis
+(``repro_torch.ml.pipeline.attach_basis``). The pre-submission and
+behavior feature matrices feed the ML pipeline (paper §4.4).
 """
 from __future__ import annotations
 
@@ -41,8 +41,9 @@ class JobSet:
     util_prof: np.ndarray    # f32[J, P] in [0,1]
     first_node: np.ndarray | None = None  # i32[J], -1 unknown
     score: np.ndarray | None = None       # f32[J] baked ML/external score
-    ml_basis: np.ndarray | None = None    # f32[J, K] ML scoring basis
-    #   (carried through trace NPZs; ``to_table`` refuses it)
+    ml_basis: np.ndarray | None = None    # f32[J, K] scoring basis
+    #   (repro_torch.ml.scoring.basis of the predicted features; lets the
+    #    table score jobs under any Scenario.alpha, see attach_basis)
     power_profile: np.ndarray | None = None  # f32[J, Q] measured per-node W
     #   (repro_torch.traces telemetry replay: negative samples mean "no
     #    measurement" — those jobs fall back to ``power_prof``; the field
@@ -55,6 +56,19 @@ class JobSet:
     @property
     def rec_end(self) -> np.ndarray:
         return self.rec_start + self.wall
+
+    def select(self, mask: np.ndarray) -> "JobSet":
+        """The jobs where ``mask`` holds, every channel carried (the ML
+        basis and the measured profile included)."""
+        def pick(x):
+            return None if x is None else x[mask]
+        return JobSet(self.submit[mask], self.limit[mask], self.wall[mask],
+                      self.nodes[mask], self.priority[mask],
+                      self.account[mask], self.rec_start[mask],
+                      self.power_prof[mask], self.util_prof[mask],
+                      pick(self.first_node), pick(self.score),
+                      pick(self.ml_basis), pick(self.power_profile),
+                      self.name)
 
     def assign_prepop_placement(self, t0: float, n_nodes: int) -> None:
         """Give contiguous spans to jobs running at t0 (prepopulation)."""
@@ -73,7 +87,9 @@ class JobSet:
                  replay_power: bool = False) -> T.JobTable:
         """Pad and pack into the fixed-shape ``JobTable`` (on the CPU; the
         engine moves it to its device): times -> f32 s, power -> f32 W,
-        counts -> i32. Padded rows are marked invalid.
+        counts -> i32. Padded rows are marked invalid; ``ml_basis`` (if
+        attached) pads with zeros, so padded jobs score 0 under every
+        alpha.
 
         ``compact_time=True`` narrows the time columns (submit / limit /
         wall / rec_start) from float32 to int32 when every value is a
@@ -91,9 +107,6 @@ class JobSet:
         profile-less jobs, fall back to the ``power_prof`` model. Off by
         default: the table's ``power_profile`` is then None and the power
         model runs as before. Requires the JobSet to carry measurements."""
-        if self.ml_basis is not None:
-            raise NotImplementedError("JobSet.ml_basis: the ML scoring "
-                                      "layer is not ported yet")
         J = len(self)
         Jp = pad_to or J
         if Jp < J:
@@ -127,6 +140,8 @@ class JobSet:
         first = self.first_node if self.first_node is not None else \
             np.full(J, -1, np.int64)
         score = self.score if self.score is not None else np.zeros(J)
+        basis = None if self.ml_basis is None else \
+            pad2(self.ml_basis, 0.0, width=self.ml_basis.shape[1])
         measured = None
         if replay_power:
             if self.power_profile is None:
@@ -150,5 +165,32 @@ class JobSet:
             power_prof=pad2(self.power_prof, 0.0),
             util_prof=pad2(self.util_prof, 0.0),
             valid=torch.from_numpy(valid),
+            ml_basis=basis,
             power_profile=measured,
         )
+
+    # -- pre-submission feature matrix for the ML pipeline (paper §4.4) -----
+    def presubmit_features(self) -> np.ndarray:
+        """f64[J, 5] features known at submit time: nodes, limit (s),
+        priority, log1p(nodes), log1p(limit). Account aggregates are
+        intentionally excluded (they're ledger state)."""
+        return np.stack([
+            self.nodes.astype(np.float64),
+            self.limit.astype(np.float64),
+            self.priority.astype(np.float64),
+            np.log1p(self.nodes.astype(np.float64)),
+            np.log1p(self.limit.astype(np.float64)),
+        ], axis=1)
+
+    def behavior_features(self) -> np.ndarray:
+        """f64[J, 7] post-hoc features (clustering targets): power trace
+        mean/max/min/std (W), utilization mean/std, runtime (s): summary
+        statistics of the noisy time series, as the paper does for PM100
+        (§4.4.3)."""
+        p = self.power_prof
+        u = self.util_prof
+        return np.stack([
+            p.mean(1), p.max(1), p.min(1), p.std(1),
+            u.mean(1), u.std(1),
+            self.wall.astype(np.float64),
+        ], axis=1)

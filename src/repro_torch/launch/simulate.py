@@ -1,5 +1,5 @@
 """S-RAPS CLI for the PyTorch port (``repro.launch.simulate``'s surface
-but the ML policy and ES training).
+but ES training).
 
   python -m repro_torch.launch.simulate --system marconi100 -t 61000 \
       -ff 4381000 --policy fcfs --backfill easy -o out/
@@ -24,8 +24,15 @@ built-in engine path from such a ledger, written by either package
 (redeem). -o/--output [DIR] (default simulation_results) writes one
 directory a run holding history.npz (every telemetry row), stats.out,
 job_history.csv and, with --accounts, accounts.json, in the JAX CLI's
-formats. --policy ml, an ml sweep entry and --ml-alpha are refused: the
-ML layer's scores are not ported.
+formats.
+
+ML-guided scheduling (paper §4.4): --policy ml fits the pipeline
+(``repro_torch.ml.pipeline``: k-means, the forest, per-cluster ridge) on
+the loaded jobs and bakes each job's score under --ml-alpha (a training
+checkpoint JSON, or comma floats; by default the paper's hand-set
+alpha) into the table. Only --policy ml fits: an ml entry of --sweep
+under another --policy ranks on the table's zero scores, as in the JAX
+CLI.
 
 --scheduler fastsim|scheduleflow couples an in-process event-based
 external simulator (``repro_torch.core.external``: FastSim schedules the
@@ -61,7 +68,7 @@ Subcommand ``serve`` runs the twin as a persistent service
 (``repro_torch.serve.cli``, docs/serving.md); ``calibrate`` fits the
 cooling-plant parameters to recorded facility telemetry
 (``repro_torch.traces.calibrate``). The JAX CLI's ``train`` subcommand
-waits for the port of its layer.
+(ES training of the ML alpha) is not ported yet.
 """
 from __future__ import annotations
 
@@ -85,6 +92,8 @@ from repro_torch.datasets import loaders
 from repro_torch.events import EventConfig
 from repro_torch.grid import signals as gsig
 from repro_torch.launch import env as launch_env
+from repro_torch.ml.pipeline import MLSchedulerModel, attach_scores
+from repro_torch.ml.train import load_alpha
 from repro_torch.systems.config import FacilityTopology, get_system
 
 
@@ -151,10 +160,8 @@ def _failure_kwargs(args, t0):
     return kw
 
 
-# layers of the JAX CLI that wait for their port: the train subcommand,
-# and the ML policy's scores (--policy ml, --ml-alpha)
-UNPORTED = {"train": "ES policy training (ROADMAP item 13)",
-            "ml": "the ML scheduling layer (ROADMAP item 10)"}
+# subcommands of the JAX CLI that wait for their port
+UNPORTED = {"train": "ES policy training (ROADMAP item 13)"}
 
 
 def _trace_digests(args) -> dict:
@@ -241,8 +248,9 @@ def main(argv=None):
                     help="warm-start the ledgers from this accounts.json "
                          "(the redeem phase)")
     ap.add_argument("--ml-alpha", default=None,
-                    help="scoring alpha for --policy ml (refused: the ML "
-                         "layer is not ported)")
+                    help="scoring alpha for --policy ml: a training "
+                         "checkpoint JSON or comma floats, e.g. "
+                         "'1.2,0.8,1.1,0.3'")
     ap.add_argument("-o", "--output", default=None, nargs="?",
                     const="simulation_results",
                     help="write history.npz, stats.out, job_history.csv "
@@ -314,7 +322,6 @@ def main(argv=None):
     obs.add_output_flags(ap)
     args = ap.parse_args(argv)
 
-    _refuse_ml(args)
     if args.smoke:
         args.scale = args.scale or 64
         args.jobs = min(args.jobs, 48)
@@ -339,6 +346,11 @@ def main(argv=None):
         weather = load_weather(args.weather_trace,
                                int(round((t1 - t0) / sys_.dt)), sys_.dt,
                                t0=t0)
+    if args.policy == "ml":
+        # the alpha is baked into the static score, so every engine path
+        # ranks alike
+        model = MLSchedulerModel.fit(js, k=5, alpha=_ml_alpha(args.ml_alpha))
+        attach_scores(js, model)
     js.assign_prepop_placement(t0, sys_.n_nodes)
     table = js.to_table(replay_power=args.replay_power)
     accounts = None
@@ -436,19 +448,14 @@ def main(argv=None):
     rep.flush_json()
 
 
-def _refuse_ml(args) -> None:
-    """``--policy ml``, an ``ml`` sweep entry and ``--ml-alpha`` need the
-    ML layer's scores, which the port does not compute: refuse them, as
-    the unported subcommands are refused, rather than rank every job
-    equal under the label ``ml``."""
-    asked = [f for f, on in (
-        ("--policy ml", args.policy == "ml"),
-        ("--sweep ml", any(e.partition(":")[0] == "ml"
-                           for e in args.sweep or ())),
-        ("--ml-alpha", args.ml_alpha is not None)) if on]
-    if asked:
-        raise SystemExit(f"simulate {', '.join(asked)}: {UNPORTED['ml']} "
-                         f"is not ported to repro_torch yet")
+def _ml_alpha(spec: str | None):
+    """``--ml-alpha``: a training checkpoint JSON when such a file exists,
+    else comma floats; None keeps the pipeline's default alpha."""
+    if not spec:
+        return None
+    if pathlib.Path(spec).exists():
+        return load_alpha(spec)
+    return np.asarray([float(x) for x in spec.split(",")], np.float32)
 
 
 def _write_output(args, js, final, hist, summary) -> pathlib.Path:

@@ -21,8 +21,6 @@ written by either package resumes in the other.
 The scenario codec is the wire form of ``types.Scenario``: plain numbers
 per knob, so a fork can carry a sparse delta (``{"setpoint_delta_c":
 2.0}``) that ``apply_scenario_delta`` merges over the parent's knobs.
-The ML scoring weights (``alpha``) are not a knob of the port yet: a
-delta naming them is refused.
 """
 from __future__ import annotations
 
@@ -247,24 +245,19 @@ def apply_scenario_delta(parent: T.Scenario, delta: dict) -> T.Scenario:
 
     ``delta`` keys must be Scenario fields; ``policy``/``backfill``
     accept wire names ("fcfs", "easy") or raw ids, every other knob a
-    number, or a list for ``cells_offline`` per hall. An empty delta
+    number or list (``cells_offline`` per hall, ``alpha`` per scoring
+    column). An empty delta
     gives a scenario equal to the parent: the *neutral fork*, whose
     branch stays bit for bit its parent.
 
     Every merged knob keeps the **parent's shape**, since a coalesced
     batch stacks the branches' scenarios knob by knob: a delta that
     would reshape one is refused here, at fork time, and a scalar on a
-    vector knob is broadcast. ``alpha`` (the ML scoring weights) is
-    refused by name: the port does not run the ML layer yet.
+    vector knob is broadcast.
     """
     if not isinstance(delta, dict):
         raise SnapshotError(f"scenario delta must be an object, got "
                             f"{type(delta).__name__}")
-    unported = sorted(set(delta) & set(T._UNPORTED_KNOBS))
-    if unported:
-        raise SnapshotError(
-            f"scenario knob(s) {', '.join(unported)} belong to the ML "
-            f"scoring layer, which repro_torch does not run yet")
     unknown = sorted(set(delta) - set(SCENARIO_FIELDS))
     if unknown:
         raise SnapshotError(f"unknown scenario knob(s): "

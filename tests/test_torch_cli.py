@@ -5,7 +5,8 @@ The flags: ``-ff/--fastforward``, ``--days``, ``--cells-offline``,
 ``--smoke``, ``--accounts``, ``--accounts-json`` and ``-o/--output``, on
 the built-in paths, a sweep, the failure and DR layer and an external
 coupling; the ``-o`` files; the two-phase incentive workflow (collect a
-ledger, redeem it); and the refusal of the unported ML policy. Each run
+ledger, redeem it); and the ML policy (``--policy ml``, an ``ml`` sweep
+entry, ``--ml-alpha`` as floats and as a checkpoint). Each run
 is small (64 nodes, at most 48 jobs, at most 1 h). Summaries: the job
 count exactly, every float at rtol 1e-4 (``power_fan``-derived fan
 energy also within an absolute 1e-9 MWh: on these small machines the
@@ -14,6 +15,7 @@ fans run near zero, as ``tests/test_torch_external.py`` sets out).
 import csv
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -173,14 +175,65 @@ def test_collect_then_redeem_matches_jax(capsys, tmp_path):
         assert warm != docs["torch-cold"][label], label
 
 
-@pytest.mark.parametrize("extra", [["--policy", "ml"],
-                                   ["--sweep", "fcfs", "ml:none"],
-                                   ["--ml-alpha", "1,1,1,1"]],
-                         ids=["policy", "sweep", "ml-alpha"])
-def test_ml_is_refused_as_not_ported(extra):
-    with pytest.raises(SystemExit, match="not ported") as err:
-        tcli.main(BASE + extra + ["--device", "cpu"])
-    assert "ROADMAP item 10" in str(err.value)
+ML_CASES = {
+    "policy": ["--policy", "ml", "--backfill", "first-fit"],
+    # an ml entry under another --policy ranks on zero scores in both
+    "sweep": ["--sweep", "fcfs", "ml:none"],
+    "ml-alpha": ["--policy", "ml", "--ml-alpha", "1,1,1,0.5"],
+    "checkpoint": ["--policy", "ml", "--backfill", "easy", "--ml-alpha"],
+    # an alpha whose products round: the baked (eager) sum and the key's
+    # fused one differ on some of these jobs
+    "rounding": ["--policy", "ml", "--backfill", "first-fit", "--ml-alpha",
+                 "1.2,0.8,1.1,0.3"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(ML_CASES))
+def test_ml_is_refused_as_not_ported(case, capsys, tmp_path, monkeypatch):
+    """``--policy ml`` (refused until the ML layer was ported, hence the
+    name) fits the pipeline on the loaded jobs in each package and bakes
+    the scores under ``--ml-alpha`` (comma floats, or a training
+    checkpoint's ``best_alpha``): the same baked scores bit for bit, the
+    same summaries and the same ``job_history.csv``."""
+    extra = list(ML_CASES[case])
+    if case == "checkpoint":
+        ck = tmp_path / "ml_alpha.json"
+        ck.write_text(json.dumps({"best_alpha": [1.3, 0.4, 0.9, 1.1]}))
+        extra.append(str(ck))
+    # one run a package writes one -o directory (a sweep writes several)
+    out = (lambda pkg: []) if case == "sweep" else \
+        (lambda pkg: ["-o", str(tmp_path / pkg)])
+    baked = {}
+    docs = {}
+    for pkg, cli, dev in (("jax", jcli, []),
+                          ("torch", tcli, ["--device", "cpu"])):
+        def spy(js, model, attach=cli.attach_scores, pkg=pkg):
+            baked[pkg] = (np.asarray(model.score_basis(js)),
+                          np.asarray(model.alpha))
+            js = attach(js, model)
+            baked[pkg] += (np.asarray(js.score),)
+            return js
+        monkeypatch.setattr(cli, "attach_scores", spy)
+        cli.main(BASE + extra + out(pkg) + dev)
+        docs[pkg] = json.loads(capsys.readouterr().out)
+    assert_summaries_match(docs["jax"], docs["torch"], case)
+    if case == "sweep":
+        assert not baked
+        return
+    for want, got, what in zip(baked["jax"], baked["torch"],
+                               ("basis", "alpha", "score")):
+        assert np.array_equal(want, got), f"{case} {what}"
+    want, got = _output(tmp_path, "jax"), _output(tmp_path, "torch")
+    assert (got / "job_history.csv").read_text() == \
+        (want / "job_history.csv").read_text(), case
+    if case == "rounding":
+        basis, alpha, score = baked["jax"]
+        key = jax.jit(lambda b, a: jax.numpy.sum(b * a, axis=-1))(basis,
+                                                                  alpha)
+        assert not np.array_equal(np.asarray(key), score)
+        (run,) = (v for k, v in docs["torch"].items() if k != "output_dir")
+        assert run["avg_wait_s"] > 0 and \
+            run["jobs_completed"] < int(BASE[BASE.index("--jobs") + 1])
 
 
 def test_smoke_and_days_set_the_dataset(monkeypatch):

@@ -156,6 +156,40 @@ def workload_pair(jsystem, pad, **spec):
     return ttable, jtable
 
 
+def ml_pair(jsystem, train_spec, test_spec, pad=None, attach="basis",
+            **fit):
+    """The JAX pipeline fitted on a training workload (``WorkloadSpec``
+    fields ``train_spec``, ``fit`` to ``MLSchedulerModel.fit``) and
+    carried into the port (``MLSchedulerModel.from_arrays``), and one test
+    workload made by both packages' dataset copies with the scoring basis
+    attached (``attach="basis"``) or the score baked (``"scores"``), the
+    jobs running at t = 0 placed, padded to ``pad``. Returns (port table,
+    JAX table, port model, JAX model), the tables checked equal leaf for
+    leaf: the carried model bases and scores bit for bit."""
+    from repro.datasets import synthetic as jsyn
+    from repro.ml import pipeline as jpipe
+    from repro_torch.datasets import synthetic as tsyn
+    from repro_torch.ml import pipeline as tpipe
+    jmodel = jpipe.MLSchedulerModel.fit(
+        jsyn.generate(jsystem, jsyn.WorkloadSpec(**train_spec)), **fit)
+    tmodel = tpipe.MLSchedulerModel.from_arrays(leaves(jmodel))
+    tables = []
+    for syn, pipe, model, system in (
+            (tsyn, tpipe, tmodel, to_port(jsystem)),
+            (jsyn, jpipe, jmodel, jsystem)):
+        js = syn.generate(system, syn.WorkloadSpec(**test_spec))
+        getattr(pipe, f"attach_{attach}")(js, model)
+        js.assign_prepop_placement(0.0, system.n_nodes)
+        tables.append(js.to_table(pad))
+    ttable, jtable = tables
+    for name, w in leaves(jtable).items():
+        if w is None:
+            assert getattr(ttable, name) is None, name
+        else:
+            assert_exact(w, getattr(ttable, name), f"table {name}")
+    return ttable, jtable, tmodel, jmodel
+
+
 def port_signals(system, n_steps, seed=11):
     """The port's copy of ``conftest.make_signals``: time-varying carbon
     and a cap schedule between 1.5x and 6x the idle floor (the reference

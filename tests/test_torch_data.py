@@ -87,9 +87,9 @@ def test_from_arrays_round_trips_jax_leaves():
 
 
 def test_scenario_from_arrays_and_unported_knobs():
-    """The grid knobs (carbon and price weights, cap scale) and the
-    failure and demand-response knobs are carried; the knob of the layer
-    not ported yet (ML alpha) still refuses a non-neutral value."""
+    """The grid knobs (carbon and price weights, cap scale), the
+    failure and demand-response knobs and the ML scoring weights (a
+    scalar alpha, a vector alpha and the two stacked) are carried."""
     from repro.core import types as JT
     kw = [dict(thermal_weight=2.0, carbon_weight=3.0, cap_scale=0.7),
           dict(setpoint_delta_c=-1.5, price_weight=0.25, cap_scale=0.85)]
@@ -105,13 +105,30 @@ def test_scenario_from_arrays_and_unported_knobs():
     assert got.cap_scale.tolist() == [np.float32(0.7), np.float32(0.85)]
     assert got.carbon_weight.tolist() == [3.0, 1.0]
     assert got.price_weight.tolist() == [1.0, 0.25]
-    with pytest.raises(NotImplementedError, match="alpha"):
-        TT.Scenario.from_arrays(leaves(JT.Scenario.make("fcfs", alpha=0.5)))
+    for alpha in (0.5, (1.0, 0.25, 2.0, 0.5)):
+        got = TT.Scenario.from_arrays(leaves(JT.Scenario.make(
+            "ml", alpha=alpha)))
+        assert_exact(np.asarray(alpha, np.float32), got.alpha, "alpha")
+    got = TT.Scenario.from_arrays(leaves(JT.stack_scenarios([
+        JT.Scenario.make("ml", alpha=0.5),
+        JT.Scenario.make("ml", alpha=(1.0, 0.25, 2.0, 0.5))])))
+    want = TT.stack_scenarios([TT.Scenario.make("ml", alpha=0.5),
+                               TT.Scenario.make("ml",
+                                                alpha=(1.0, 0.25, 2.0, 0.5))])
+    assert torch.equal(got.alpha, want.alpha) and got.alpha.shape == (2, 4)
     for knob, value in [("node_fail_rate", 1e-6), ("cdu_fail_rate", 1e-6),
                         ("cell_fail_rate", 1e-6), ("failure_corr", 0.5),
                         ("dr_announce_s", 600.0)]:
         got = TT.Scenario.from_arrays(leaves(JT.Scenario.make(
             "fcfs", **{knob: value})))
         assert getattr(got, knob) == np.float32(value), knob
-    with pytest.raises(NotImplementedError, match="ml_basis"):
-        TT.JobTable.from_arrays({"ml_basis": np.zeros((2, 2))})
+    # a scoring basis is carried, its padded rows zero in both tables
+    system = get_system("marconi100").scaled(64)
+    js = jgen(system, JSpec(n_jobs=40, duration_s=7200.0, trace_len=4,
+                            n_accounts=4, seed=9))
+    js.ml_basis = np.random.default_rng(3).uniform(
+        1.0, np.e, (40, 4)).astype(np.float32)
+    jtable = js.to_table(48)
+    got = TT.JobTable.from_arrays(leaves(jtable))
+    assert_exact(np.asarray(jtable.ml_basis), got.ml_basis, "ml_basis")
+    assert not got.ml_basis[40:].any()

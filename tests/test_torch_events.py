@@ -390,9 +390,13 @@ def test_from_arrays_takes_the_failure_and_dr_knobs_and_events(small_system,
     want = TT.Scenario.make("sjf", "easy", **kw)
     for k, v in vars(want).items():
         assert torch.equal(getattr(got, k), v), k
-    assert TT._UNPORTED_KNOBS == {"alpha": 0.0}
-    with pytest.raises(NotImplementedError, match="alpha"):
-        TT.Scenario.from_arrays(leaves(JT.Scenario.make("ml", alpha=0.5)))
+    # the ML weights ride along with the event knobs, scalar or vector
+    for alpha in (0.5, (0.5, 1.0, 1.5, 2.0)):
+        got = TT.Scenario.from_arrays(leaves(JT.Scenario.make(
+            "ml", "easy", alpha=alpha, **kw)))
+        want = TT.Scenario.make("ml", "easy", alpha=alpha, **kw)
+        for k, v in vars(want).items():
+            assert torch.equal(getattr(got, k), v), (alpha, k)
     jst = jeng.init_state(small_system, small_table, 0.0, 3600.0,
                           num_accounts=8, events=JEventConfig())
     st = TT.SimState.from_arrays(leaves(jst))

@@ -63,8 +63,8 @@ def table_pair(jjs, tjs, **kw):
     jt, tt = jjs.to_table(len(jjs) + 8, **kw), tjs.to_table(len(tjs) + 8,
                                                            **kw)
     for name, w in leaves(jt).items():
-        if w is None:             # the port's table has no ml_basis at all
-            assert getattr(tt, name, None) is None, name
+        if w is None:             # no scoring basis, or no replay channel
+            assert getattr(tt, name) is None, name
         else:
             assert_exact(w, getattr(tt, name), f"{kw} {name}")
     return jt, tt
@@ -109,8 +109,13 @@ def test_from_arrays_takes_the_replay_channel(trace_jobset, port_jobset):
     assert_states_equal(tt, got, "from_arrays ")
     assert TT.JobTable.from_arrays({**leaves(jt), "power_profile": None}
                                    ).power_profile is None
-    with pytest.raises(NotImplementedError, match="ml_basis"):
-        TT.JobTable.from_arrays({**leaves(jt), "ml_basis": np.ones((2, 2))})
+    # a scoring basis rides along with the replay channel
+    basis = np.random.default_rng(5).uniform(1.0, np.e, (len(tt.valid), 4))
+    got = TT.JobTable.from_arrays({**leaves(jt),
+                                   "ml_basis": basis.astype(np.float32)})
+    assert_exact(basis.astype(np.float32), got.ml_basis, "ml_basis")
+    assert_exact(leaves(jt)["power_profile"], got.power_profile,
+                 "power_profile")
 
 
 @pytest.mark.parametrize("elapsed_s", [0.0, 10.0, 45.0, 300.0, 1e6])

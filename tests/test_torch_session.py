@@ -45,8 +45,8 @@ from repro_torch.obs import sink as tsink
 from repro_torch.serve import SessionError, TwinSession
 from repro_torch.serve import snapshot as snap
 
-from test_torch_common import (assert_exact, port_signals, to_port,
-                               workload_pair)
+from test_torch_common import (assert_exact, ml_pair, port_signals,
+                               to_port, workload_pair)
 
 torch.set_num_threads(1)
 
@@ -346,8 +346,8 @@ def test_session_error_taxonomy(small):
         sess.snapshot(0, at_step=999)
     with pytest.raises(SessionError, match="scalar in this session"):
         sess.fork(0, {"cells_offline": [1.0, 0.0]})
-    with pytest.raises(SessionError, match="ML scoring layer"):
-        sess.fork(0, {"alpha": 0.5})
+    with pytest.raises(SessionError, match="alpha.*scalar in this session"):
+        sess.fork(0, {"alpha": [1.0, 1.0, 1.0, 0.5]})
     with pytest.raises(SessionError, match=">= 0"):
         sess.advance_many({0: -1})
     assert sess.advance_many({0: 1})[0]["advanced_steps"] == INTERVAL
@@ -402,6 +402,45 @@ def test_session_matches_jax(topo):
     grow(port, lambda s, p, d, at=None: s.fork(p, d, at).branch_id)
     grow(ref, lambda s, p, d, at=None: s.fork(p, d, at).branch_id)
     assert sorted(port.branches) == sorted(ref.branches) == [0, 1, 2, 3]
+    assert_sessions_match(port, ref)
+
+
+def test_alpha_fork_matches_jax():
+    """Forks that change ``alpha`` (the ML scoring weights, a vector and
+    a scalar broadcast over it) on a table carrying the scoring basis of
+    the JAX-fitted model: every row and checkpoint as the JAX session's,
+    and each fork ranks its own way (its schedule leaves its parent's)."""
+    jsystem = jbuild("marconi100", scale=64)
+    ttable, jtable, _, jmodel = ml_pair(
+        jsystem, dict(n_jobs=200, duration_s=86400.0, load=1.0, trace_len=8,
+                      n_accounts=8, seed=4),
+        dict(n_jobs=80, duration_s=1800.0, load=3.0, trace_len=8,
+             n_accounts=8, mean_wall_s=600.0, seed=7),
+        pad=96, k=3, n_trees=4, depth=4)
+    alpha = tuple(float(a) for a in np.asarray(jmodel.alpha))
+    port = TwinSession(to_port(jsystem), ttable,
+                       TT.Scenario.make("ml", "first-fit", alpha=alpha), 0.0,
+                       HORIZON_S, interval_steps=INTERVAL, num_accounts=8,
+                       device="cpu")
+    ref = jsession.TwinSession(
+        jsystem, jtable, JT.Scenario.make("ml", "first-fit", alpha=alpha),
+        0.0, HORIZON_S, interval_steps=INTERVAL, num_accounts=8)
+    for sess in (port, ref):
+        sess.advance_many({0: 2})
+        sess.fork(0, {"alpha": [0.1, 3.0, 0.1, 3.0]})
+        sess.fork(0, {"alpha": 0.5})
+        sess.advance_many({0: 10, 1: 10, 2: 10})
+    assert_sessions_match(port, ref)
+    last = max(port.branches[0].checkpoints)
+    start = {b: port.branches[b].checkpoints[last].start
+             for b in port.branches}
+    assert not np.array_equal(start[0], start[1])
+    assert not np.array_equal(start[0], start[2])
+
+
+def assert_sessions_match(port, ref):
+    """Every branch of two sessions grown alike: rows at rtol 1e-4, and
+    the schedule leaves of every checkpoint exactly (floats at 1e-4)."""
     for b in port.branches:
         got, want = port.fetch(b, binary=True), ref.fetch(b, binary=True)
         assert got["fields"] == want["fields"]

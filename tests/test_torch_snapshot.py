@@ -12,8 +12,8 @@ and matches JAX's own resume (the schedule exactly, floats at rtol
 payloads fail with ``SnapshotError`` and nothing else (the reference's
 ``tests/test_serve_properties.py`` cases, and seeded random garbage
 where the reference draws it with hypothesis); fork deltas are
-validated as the reference validates them, and ``alpha`` (the ML layer,
-not ported) is refused by name.
+validated as the reference validates them, the ML scoring weights
+(``alpha``, a scalar or one per scoring column) included.
 """
 import json
 import random
@@ -318,11 +318,33 @@ def test_scenario_delta_validates_vector_shapes():
 @pytest.mark.parametrize("delta", [{"alpha": 0.5}, {"alpha": [0.1, 0.2]},
                                    {"alpha": 0.0, "cap_scale": 0.9}])
 def test_alpha_delta_is_refused_by_name(delta):
-    """``alpha`` is a JAX knob the port does not run: refused as such,
-    never as an unknown knob and never dropped."""
-    with pytest.raises(snap.SnapshotError, match="ML scoring layer") as e:
-        snap.apply_scenario_delta(TT.Scenario.make("fcfs"), delta)
-    assert "unknown" not in str(e.value)
+    """``alpha`` (refused by name until the ML layer was ported, hence the
+    test's name) merges as the reference merges it: a scalar on a scalar
+    session or broadcast over a vector one, a vector of the session's
+    length K; any other shape is the reference's ``SnapshotError``."""
+    for alpha in (0.0, (1.0, 1.0, 1.0, 0.5)):
+        port = TT.Scenario.make("ml", "first-fit", alpha=alpha)
+        ref = JT.Scenario.make("ml", "first-fit", alpha=alpha)
+        try:
+            merged = jsnap.apply_scenario_delta(ref, delta)
+        except jsnap.SnapshotError as e:
+            with pytest.raises(snap.SnapshotError) as err:
+                snap.apply_scenario_delta(port, delta)
+            # the same refusal (the reference's tail names its tracer)
+            assert str(err.value).split(";")[0] == str(e).split(";")[0]
+            continue
+        got = snap.apply_scenario_delta(port, delta)
+        for name, w in leaves(merged).items():
+            np.testing.assert_array_equal(as_np(getattr(got, name)), w,
+                                          err_msg=f"{alpha} {delta} {name}")
+            assert as_np(getattr(got, name)).dtype == w.dtype, name
+        assert snap.encode_scenario(got) == jsnap.encode_scenario(merged)
+    with pytest.raises(snap.SnapshotError, match="scalar in this session"):
+        snap.apply_scenario_delta(TT.Scenario.make("ml"),
+                                  {"alpha": [1.0, 1.0, 1.0, 0.5]})
+    with pytest.raises(snap.SnapshotError, match="length 4"):
+        snap.apply_scenario_delta(TT.Scenario.make("ml", alpha=(1.0,) * 4),
+                                  {"alpha": [0.1, 0.2]})
 
 
 SCENARIOS = [
@@ -333,27 +355,27 @@ SCENARIOS = [
                                   dr_announce_s=600.0, dr_notice_s=300.0,
                                   dr_duration_s=900.0, dr_cap_w=1e5,
                                   **FAILURES)),
+    ("ml", "first-fit", dict(alpha=(1.0, 1.0, 1.0, 0.5))),
 ]
 DELTAS = [{}, {"setpoint_delta_c": 2.0}, {"policy": "sjf", "backfill": 2},
           {"cells_offline": 1.0}, {"node_fail_rate": 2e-4,
                                    "failure_seed": 7, "repair_s": 600.0},
-          {"dr_cap_w": 123456.7, "dr_announce_s": 3600}]
+          {"dr_cap_w": 123456.7, "dr_announce_s": 3600}, {"alpha": 0.25}]
 
 
 @pytest.mark.parametrize("scen", range(len(SCENARIOS)))
 def test_scenario_codec_matches_jax(scen):
-    """``encode_scenario`` is the reference's without ``alpha``, and every
-    delta merges to the reference's knobs bit for bit."""
+    """``encode_scenario`` is the reference's, ``alpha`` and the knobs'
+    order included, and every delta merges to the reference's knobs bit
+    for bit."""
     p, b, kw = SCENARIOS[scen]
     port, ref = TT.Scenario.make(p, b, **kw), JT.Scenario.make(p, b, **kw)
-    want = jsnap.encode_scenario(ref)
-    assert want.pop("alpha") == 0.0
-    assert snap.encode_scenario(port) == want
+    assert list(snap.encode_scenario(port).items()) == \
+        list(jsnap.encode_scenario(ref).items())
     for delta in DELTAS:
         got = snap.apply_scenario_delta(port, delta)
         merged = jsnap.apply_scenario_delta(ref, delta)
         for name, w in leaves(merged).items():
-            if name != "alpha":
-                np.testing.assert_array_equal(as_np(getattr(got, name)), w,
-                                              err_msg=f"{delta} {name}")
-                assert as_np(getattr(got, name)).dtype == w.dtype, name
+            np.testing.assert_array_equal(as_np(getattr(got, name)), w,
+                                          err_msg=f"{delta} {name}")
+            assert as_np(getattr(got, name)).dtype == w.dtype, name

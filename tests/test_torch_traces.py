@@ -24,7 +24,7 @@ from repro_torch import traces as ttr  # noqa: E402
 from repro_torch.core import transport as ttransport  # noqa: E402
 from repro_torch.datasets import loaders as tloaders  # noqa: E402
 from repro_torch.datasets import swf as tswf  # noqa: E402
-from test_torch_common import assert_jobsets_equal  # noqa: E402
+from test_torch_common import assert_exact, assert_jobsets_equal  # noqa: E402
 from test_traces_properties import (CORRUPTIONS, random_frame,  # noqa: E402
                                     random_weather)
 
@@ -98,7 +98,8 @@ def test_npz_cache_loads_in_the_other_package(writer, tmp_path,
 def test_npz_writers_round_trip_every_channel(tmp_path):
     """jobset_to_npz of either package keeps every channel (first_node,
     score, the measured profile, the ML basis) through the other's
-    jobset_from_npz; the port's table refuses the ML basis."""
+    jobset_from_npz, and both packages' tables carry the ML basis alike
+    (its padded rows zero)."""
     js = ttr.load_telemetry(*TELEMETRY, prof_dt=20.0)
     js.assign_prepop_placement(0.0, 64)
     js.score = np.linspace(0.0, 1.0, len(js))
@@ -109,8 +110,10 @@ def test_npz_writers_round_trip_every_channel(tmp_path):
     jtr.jobset_to_npz(back, tmp_path / "j.npz", digest="abc")
     assert_jobsets_equal(back, ttr.jobset_from_npz(tmp_path / "j.npz"),
                          "reference -> port")
-    with pytest.raises(NotImplementedError, match="ml_basis"):
-        js.to_table()
+    pad = len(js) + 8
+    want, got = back.to_table(pad).ml_basis, js.to_table(pad).ml_basis
+    assert_exact(np.asarray(want), got, "ml_basis")
+    assert not got[len(js):].any()
     np.savez(tmp_path / "old.npz", version=np.array(0))
     for pkg in (jtr, ttr):
         with pytest.raises(pkg.TraceError, match="version"):
