@@ -67,18 +67,27 @@ through their entry points at full width and checks what comes out:
   calibrate --out`` and ``--check`` as processes on a 2,880 step window
   of the fixture (cut for the script's time), whose fit must recover the
   fixture's true parameters within 2 %;
-* ``ml-fugaku-36h``, the ML-guided scheduler (``repro_torch.ml``) with
-  ``benchmarks/fig10_ml.py``'s setup on Fugaku scaled to 32,768 nodes:
-  the pipeline (k-means, an 8-tree forest, per-cluster ridge) fitted on
-  the host on a 4,000-job 14-day history, the scoring basis of a
-  1,500-job high-load backlog in the table, fig10's five policies
-  (fcfs, sjf, priority, ljf, ml at the model's alpha) as one sweep over
-  fig10's own 1.5 days (2,160 steps; the backlog queues after its first
-  12 h), one fused cooling launch a step, the ml row starting its jobs
-  otherwise than every other row and equal to a solo run bit for bit;
-  then the CLI's
-  ``--policy ml --ml-alpha <checkpoint>`` on fig8's Marconi100 backlog
-  for 2 h as a process, equal to the same argv in process;
+* ``ml-fugaku-train`` and ``ml-fugaku-36h``, the ML-guided scheduler
+  (``repro_torch.ml``) with ``benchmarks/fig10_ml.py``'s setup on Fugaku
+  scaled to 32,768 nodes: the pipeline (k-means, an 8-tree forest,
+  per-cluster ridge) fitted on the host on a 4,000-job 14-day history;
+  ES training of its alpha (``repro_torch.ml.train``): ``simulate train
+  --smoke``'s first two generations on the card against the same CLI
+  with ``--device cpu`` as a process, their checkpoints' means and elite
+  bit for bit, then fig10's closed loop on its 800-job validation
+  backlog over 0.25 day (360 steps), population 8, 4 generations
+  (fig10's ``--quick`` count), each one sweep of 10 rows, one fused
+  cooling launch a step, a checkpoint each, the elite no worse than the
+  default alpha;
+  then the scoring basis of a 1,500-job high-load backlog in the table,
+  fig10's five policies (fcfs, sjf, priority, ljf, ml at the model's
+  alpha) and the trained alpha as one sweep over fig10's own 1.5 days
+  (2,160 steps; the backlog queues after its first 12 h), one fused
+  cooling launch a step, the ml row starting its jobs otherwise than
+  every other policy's row and equal to a solo run bit for bit; then the
+  CLI's ``--policy ml --ml-alpha <the trained checkpoint>`` on fig8's
+  Marconi100 backlog for 2 h as a process, equal to the same argv in
+  process;
 * fig7's external schedulers (``repro_torch.core.external``) on Frontier
   at full width with ``benchmarks/fig7_external.py``'s backlog (5,324
   synthetic jobs over 15 days, load 0.9): FastSimLike's whole schedule
@@ -188,6 +197,7 @@ from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv  # noqa: E402
 from repro_torch.launch import serve_lm  # noqa: E402
 from repro_torch.launch.simulate import build_system  # noqa: E402
+from repro_torch.ml import train as ml_train  # noqa: E402
 from repro_torch.ml.pipeline import (MLSchedulerModel,  # noqa: E402
                                      attach_basis, attach_scores)
 from repro_torch.configs import get_config  # noqa: E402
@@ -2518,35 +2528,219 @@ ML_POLICIES = ["fcfs", "sjf", "priority", "ljf", "ml"]
 ML_OBJECTIVES = ["avg_wait_s", "avg_turnaround_s", "avg_job_energy_j", "edp",
                  "max_power_mw"]
 ML_T1 = 1.5 * 86400.0
-# the CLI's --policy ml with a checkpoint's alpha, on fig8's Marconi100
-# backlog at full width, 2 h
+# the CLI's --policy ml with the trained checkpoint's alpha, on fig8's
+# Marconi100 backlog at full width, 2 h
 ML_CLI = FIG8_DATA + ["-t", "2h", "--policy", "ml", "--backfill",
                       "first-fit"]
-ML_CKPT_ALPHA = [1.3, 0.4, 0.9, 1.1]
+# fig10's closed loop (benchmarks/fig10_ml.py:87-96): ES on the 800-job
+# validation backlog over 0.25 day (360 steps), population 8 (10 rows a
+# sweep with the mean and the baseline), seed 33, the default reward; 4
+# generations, fig10's --quick count (fig10 itself runs 8)
+ES_VAL = dict(n_jobs=800, duration_s=0.5 * 86400.0, load=1.8, trace_len=8,
+              n_accounts=64, seed=32, max_frac_nodes=0.15)
+ES_T1 = 0.25 * 86400.0
+ES_GENERATIONS = 4
+ES_POPULATION = 8
+ES_SEED = 33
+# the card against the CPU: `simulate train --smoke`'s first two
+# generations, whose distinct rewards lie at least 2.95e-5 apart; the
+# rewards are held within a sixth of that, so no swap hides inside it
+ES_SMOKE = ["--smoke", "--generations", "2", "--quiet"]
+ES_REWARD_TOL = 5e-6
+ES_REFS_RTOL = 1e-5
 
-def ml_path(card):
-    """ml-fugaku-36h: the pipeline fitted on the host, the test backlog's
-    scoring basis in the table, fig10's five policies as one sweep on the
-    card; one fused_cooling launch a step, the ml row starting its jobs
-    otherwise than every other row and equal to a solo run."""
-    system = get_system("fugaku").scaled(ML_NODES)
-    train = generate(system, WorkloadSpec(**ML_TRAIN))
+def start_es_cpu(tmp):
+    """Start the CPU half of the smoke comparison: ``simulate train`` with
+    ``ES_SMOKE`` and ``--device cpu``, a process of its own on one thread
+    that runs beside the card's work. Returns (process, the checkpoint it
+    writes)."""
+    ck = tmp / "es_smoke_cpu.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.simulate", "train",
+         *ES_SMOKE, "--device", "cpu", "--checkpoint", str(ck)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return proc, ck
+
+def es_smoke(card, tmp, cpu):
+    """The smoke config's ES trajectory on the card against the CPU (the
+    process ``cpu`` from ``start_es_cpu``), read off the two checkpoints:
+    the settings, every generation's next mean and the elite bit for bit,
+    the rewards within ``ES_REWARD_TOL``, the normalizers within
+    ``ES_REFS_RTOL``. A generation's candidates follow from its mean and
+    the seed, and the next mean adds each candidate's perturbation times
+    its rank's utility: equal means in every generation hold the
+    candidates and the order the ES step gave them."""
+    ck = tmp / "es_smoke_card.json"
     t = time.perf_counter()
-    model = MLSchedulerModel.fit(train, **ML_FIT)
-    fit_s = time.perf_counter() - t
+    res = ml_train.main(ES_SMOKE + ["--checkpoint", str(ck)])
+    wall = time.perf_counter() - t
+    proc, cpu_ck = cpu
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise SystemExit(f"ES smoke on the CPU exited {proc.returncode}: "
+                         f"{err[-3000:]}")
+    got, want = json.loads(ck.read_text()), json.loads(cpu_ck.read_text())
+    for k in ("alpha0", "sigma", "lr", "population", "generation", "reward",
+              "seed", "mu", "best_alpha"):
+        if got[k] != want[k]:
+            raise SystemExit(f"ES smoke: {k} on the card {got[k]}, on the "
+                             f"CPU {want[k]}")
+    if len(got["history"]) != len(want["history"]) or not got["history"]:
+        raise SystemExit(f"ES smoke: {len(got['history'])} generations on "
+                         f"the card, {len(want['history'])} on the CPU")
+    rewards = ("reward_mu", "reward_best", "reward_baseline",
+               "reward_pop_mean")
+    pairs = [(got["best_reward"], want["best_reward"])]
+    for c, h in zip(got["history"], want["history"]):
+        g = c["generation"]
+        if g != h["generation"] or c["mu"] != h["mu"]:
+            raise SystemExit(f"ES smoke generation {g}: mu on the card "
+                             f"{c['mu']}, on the CPU {h['mu']}")
+        pairs += [(c[k], h[k]) for k in rewards]
+        print(f"  [{card}] ES smoke generation {g}: " + " ".join(
+            f"{k}={c[k]!r}" for k in rewards) + f"; mu -> {c['mu']}")
+    worst = max(abs(c - h) for c, h in pairs)
+    if worst > ES_REWARD_TOL:
+        raise SystemExit(f"ES smoke: rewards {worst!r} apart")
+    refs = max(abs(got["refs"].get(k, np.inf) - v) / max(abs(v), 1e-300)
+               for k, v in want["refs"].items())
+    if got["refs"].keys() != want["refs"].keys() or refs > ES_REFS_RTOL:
+        raise SystemExit(f"ES smoke: normalizers on the card {got['refs']}, "
+                         f"on the CPU {want['refs']}")
+    print(f"[{card}] ES smoke (`simulate train {' '.join(ES_SMOKE)}`, "
+          f"marconi100 x64, 90 jobs, 2 h, population 8): "
+          f"{len(got['history'])} generations in {wall!r} s on the card; "
+          f"the checkpoint against the CPU process's: mu in every "
+          f"generation and the elite {got['best_alpha']} bit for bit, "
+          f"rewards within {worst!r} (bound {ES_REWARD_TOL}), normalizers "
+          f"within {refs!r} relative (bound {ES_REFS_RTOL}); gain "
+          f"{res.reward_best - res.reward_default!r}")
+
+def es_train(card, system, model, tmp):
+    """fig10's closed loop at its width: ES on the validation backlog's
+    basis under ``model``, ``ES_GENERATIONS`` generations on the card,
+    a checkpoint each. Each generation is one sweep of population + 2
+    rows, one fused_cooling launch a step; the elite is no worse than the
+    default alpha, whose reward is the reference's baseline formula.
+    Returns (TrainResult, the checkpoint file, the launches)."""
+    val = generate(system, WorkloadSpec(**ES_VAL))
+    attach_basis(val, model)
+    val.assign_prepop_placement(0.0, system.n_nodes)
+    table = val.to_table()
+    n_steps = int(round(ES_T1 / system.dt))
+    reward = ml_train.Reward.parse(ml_train.DEFAULT_REWARD_SPEC)
+    ck = tmp / "es_fig10.json"
+    print(f"ml path ml-fugaku-train: N={system.n_nodes} J={table.num_jobs} "
+          f"steps={n_steps} generations={ES_GENERATIONS} rows a sweep="
+          f"{ES_POPULATION + 2}; reward {reward.spec}, seed {ES_SEED}")
+    rows = {"simulate_sweep_sharded": [], "simulate_sweep": []}
+    spied = {name: getattr(eng, name) for name in rows}
+
+    def spy(name):
+        def run(system_, table_, scens, *a, **k):
+            rows[name].append(len(scens))
+            return spied[name](system_, table_, scens, *a, **k)
+        return run
+    for name in rows:
+        setattr(eng, name, spy(name))
+    saves, save = [], ml_train._save_checkpoint
+    ml_train._save_checkpoint = lambda path, **state: (
+        saves.append(state["generation"]), save(path, **state))
+    try:
+        res, wall, launches = run_counted(lambda: ml_train.train(
+            system, table, 0.0, ES_T1, reward=reward,
+            generations=ES_GENERATIONS, population=ES_POPULATION,
+            seed=ES_SEED, checkpoint=ck, log=None))
+    finally:
+        for name, fn in spied.items():
+            setattr(eng, name, fn)
+        ml_train._save_checkpoint = save
+    one_sweep = [ES_POPULATION + 2] * ES_GENERATIONS
+    if rows["simulate_sweep_sharded"] != one_sweep or \
+            rows["simulate_sweep"] != one_sweep:
+        raise SystemExit(f"ES train: sweeps of {rows}, not one of "
+                         f"{ES_POPULATION + 2} rows a generation")
+    if launches["fused_cooling"] != ES_GENERATIONS * n_steps or \
+            launches["group_power"] != 0:
+        raise SystemExit(f"ES train of {ES_GENERATIONS} x {n_steps} steps "
+                         f"launched {launches}")
+    if saves != list(range(1, ES_GENERATIONS + 1)):
+        raise SystemExit(f"ES train: checkpoints after generations {saves}")
+    for h in res.history:
+        print(f"  [{card}] ES generation {h['generation']}: reward_mu "
+              f"{h['reward_mu']!r} reward_best {h['reward_best']!r} "
+              f"reward_baseline {h['reward_baseline']!r} in {h['wall_s']!r} "
+              f"s = {n_steps / h['wall_s']!r} steps/s; mu -> {h['mu']}")
+    # the baseline's reward: each term w * ref / ref = w, or w * ref when
+    # a normaliser is zero (then unnormalised), in the reference's order
+    want = 0.0
+    for name, w in reward.weights:
+        ref = res.refs[name]
+        want = want - w * ref / (ref if abs(ref) > 1e-12 else 1.0)
+    zero = [n for n, v in res.refs.items() if abs(v) <= 1e-12]
+    if res.reward_default != want or (not zero and want != -2.25):
+        raise SystemExit(f"ES train: the default alpha's reward "
+                         f"{res.reward_default!r}, not {want!r} (zero "
+                         f"normalisers {zero})")
+    if not res.reward_best >= res.reward_default:
+        raise SystemExit(f"ES train: elite {res.reward_best!r} below the "
+                         f"default alpha's {res.reward_default!r}")
+    print(f"[{card}] ES train: {ES_GENERATIONS} generations x {n_steps} "
+          f"steps x {ES_POPULATION + 2} rows in {wall!r} s = "
+          f"{ES_GENERATIONS * n_steps / wall!r} steps/s, one sweep a "
+          f"generation, launches {launches}, a checkpoint each generation; "
+          f"elite alpha {res.alpha.tolist()} reward {res.reward_best!r} "
+          f"against the default's {res.reward_default!r} (zero normalisers: "
+          f"{zero}), gain {res.reward_best - res.reward_default!r}; mu "
+          f"{res.mu.tolist()}; normalisers {res.refs}")
+    return res, ck, launches
+
+
+def ml_path(card, tmp):
+    """ml-fugaku-36h with fig10's closed loop: the pipeline fitted on the
+    host; ES training of its alpha (the smoke config card = CPU, then
+    fig10's loop on the validation backlog at 32,768 nodes); the test
+    backlog's scoring basis in the table, fig10's five policies and the
+    trained alpha as one sweep on the card, one fused_cooling launch a
+    step, the ml row starting its jobs otherwise than every other
+    baseline and equal to a solo run. Returns (the sweep's launches, the
+    training's, the trained checkpoint)."""
+    cpu = start_es_cpu(tmp)
+    try:
+        system = get_system("fugaku").scaled(ML_NODES)
+        train = generate(system, WorkloadSpec(**ML_TRAIN))
+        t = time.perf_counter()
+        model = MLSchedulerModel.fit(train, **ML_FIT)
+        fit_s = time.perf_counter() - t
+        es_smoke(card, tmp, cpu)
+    finally:
+        if cpu[0].poll() is None:
+            cpu[0].kill()
+            cpu[0].wait()
+    trained, ck, es_launches = es_train(card, system, model, tmp)
     test = generate(system, WorkloadSpec(**ML_TEST))
     attach_basis(test, model)
     test.assign_prepop_placement(0.0, system.n_nodes)
     table = test.to_table()
     alpha = model.alpha.numpy()
+    names = ML_POLICIES + ["ml_trained"]
     scens = [T.Scenario.make(p, "first-fit", alpha=alpha if p == "ml"
                              else 0.0) for p in ML_POLICIES]
+    scens.append(T.Scenario.make("ml", "first-fit", alpha=trained.alpha))
     n_steps = int(round(ML_T1 / system.dt))
     S = len(scens)
     print(f"ml path ml-fugaku-36h: N={system.n_nodes} "
           f"G={system.cooling.n_groups} J={table.num_jobs} steps={n_steps} "
           f"S={S}; fit on {len(train)} jobs ({ML_FIT}) on the host in "
-          f"{fit_s!r} s; alpha {alpha.tolist()}")
+          f"{fit_s!r} s; alpha {alpha.tolist()}, trained "
+          f"{trained.alpha.tolist()}")
     run = lambda: eng.simulate_sweep(system, table, scens, 0.0, ML_T1)
     (finals, hists), wall, launches = run_counted(run)
     print(f"[{card}] ml sweep: {n_steps} steps x {S} scenarios in {wall!r} s "
@@ -2555,20 +2749,37 @@ def ml_path(card):
         raise SystemExit(f"ml sweep of {n_steps} steps launched {launches}")
     check_run("ml sweep", finals, hists, n_steps, S)
     obj = np.zeros((S, len(ML_OBJECTIVES)))
-    for i, p in enumerate(ML_POLICIES):
+    for i, p in enumerate(names):
         s = stats_mod.summarize(system, table, T.row(finals, i),
                                 T.row(hists, i))
         obj[i] = [s[o] for o in ML_OBJECTIVES]
         print(f"  [{card}] {p}:first-fit: jobs_completed="
               f"{s['jobs_completed']:.0f} " + " ".join(
                   f"{o}={s[o]!r}" for o in ML_OBJECTIVES))
-    # fig10b: the L2-normalized multi-objective score (lower is better)
-    l2 = (obj / (np.linalg.norm(obj, axis=0) + 1e-9)).mean(axis=1)
-    score = dict(zip(ML_POLICIES, l2.tolist()))
+    # fig10b: the L2-normalized multi-objective score (lower is better),
+    # over fig10's five policies, and with the trained row beside them
+    l2 = lambda o: (o / (np.linalg.norm(o, axis=0) + 1e-9)).mean(axis=1)
+    score = dict(zip(ML_POLICIES, l2(obj[:-1]).tolist()))
+    score6 = dict(zip(names, l2(obj).tolist()))
     print(f"[{card}] ml sweep: L2 multi-objective score {score}; fig10's "
           f"check ml <= ljf + 0.02 (not gated here): "
-          f"{score['ml'] <= score['ljf'] + 0.02}")
+          f"{score['ml'] <= score['ljf'] + 0.02}; with the trained row "
+          f"{score6}")
     ml = ML_POLICIES.index("ml")
+    # the trained alpha under the training reward, normalised by the ml
+    # row (fig10's sweep_trained)
+    reward = ml_train.Reward.parse(ml_train.DEFAULT_REWARD_SPEC)
+    metrics = ml_train.rollout_metrics(system, table,
+                                       ml_train.to_host(finals),
+                                       ml_train.to_host(hists))
+    rewards = reward.evaluate(metrics, reward.refs(metrics, ml))
+    s = stats_mod.summarize(system, table, T.row(finals, S - 1),
+                            T.row(hists, S - 1))
+    print(f"[{card}] ml sweep, held-out backlog: ml_trained avg_wait_s="
+          f"{s['avg_wait_s']!r}, L2 {score6['ml_trained']!r} against ml's "
+          f"{score6['ml']!r}; reward ({reward.spec}, normalised by the ml "
+          f"row) {float(rewards[-1])!r} against ml's {float(rewards[ml])!r} "
+          f"(not gated)")
     same = [p for i, p in enumerate(ML_POLICIES) if i != ml and
             torch.equal(finals.start[i], finals.start[ml])]
     moved = [int((finals.start[i] != finals.start[ml]).sum())
@@ -2576,20 +2787,21 @@ def ml_path(card):
     print(f"[{card}] ml sweep: mean queue length "
           f"{hists.n_queued.mean(1).tolist()}, longest "
           f"{hists.n_queued.amax(1).tolist()}; jobs whose start differs from "
-          f"the ml row's: {dict(zip(ML_POLICIES, moved))}")
+          f"the ml row's: {dict(zip(names, moved))}")
     if same:
         raise SystemExit(f"ml sweep: the rows {same} start their jobs as the "
                          f"ml row does: the ML ranking was not exercised")
     check_row_vs_solo("ml sweep", finals, hists, eng.simulate(
         system, table, scens[ml], 0.0, ML_T1), row=ml)
-    return launches
+    return launches, es_launches, ck.read_text()
 
-def ml_cli(card, tmp):
-    """One CLI process with --policy ml and a checkpoint's alpha
-    (--ml-alpha FILE): its stats.out and job_history.csv equal those of
-    the same argv run in this process."""
+def ml_cli(card, tmp, checkpoint):
+    """One CLI process with --policy ml and the trained checkpoint's alpha
+    (--ml-alpha FILE, the file ES training wrote): its stats.out and
+    job_history.csv equal those of the same argv run in this process."""
     ck = tmp / "ml_alpha.json"
-    ck.write_text(json.dumps({"best_alpha": ML_CKPT_ALPHA}))
+    ck.write_text(checkpoint)
+    alpha = ml_train.load_alpha(ck).tolist()
     argv = ML_CLI + ["--ml-alpha", str(ck)]
     doc, wall, log = cli_process("--policy ml", argv + ["-o",
                                                         str(tmp / "proc")])
@@ -2603,9 +2815,9 @@ def ml_cli(card, tmp):
             raise SystemExit(f"CLI --policy ml: {name} differs between the "
                              f"process and the same argv in process")
     s = doc["ml:first-fit"]
-    print(f"[{card}] CLI {' '.join(ML_CLI)} --ml-alpha <checkpoint "
-          f"{ML_CKPT_ALPHA}> as a process: exit 0 in {wall!r} s; stats.out "
-          f"and job_history.csv = the same argv in process; "
+    print(f"[{card}] CLI {' '.join(ML_CLI)} --ml-alpha <the trained "
+          f"checkpoint, {alpha}> as a process: exit 0 in {wall!r} s; "
+          f"stats.out and job_history.csv = the same argv in process; "
           f"jobs_completed={s['jobs_completed']:.0f} "
           f"avg_wait_s={s['avg_wait_s']!r}")
 
@@ -3123,8 +3335,9 @@ def main():
     elapsed("wire and the serve subcommand")
     fugaku_path(card)
     elapsed("fugaku-sweep-2h")
-    ml = ml_path(card)
-    elapsed("ml-fugaku-36h")
+    with tempfile.TemporaryDirectory(prefix="ml") as tmp:
+        ml, es, trained_ck = ml_path(card, pathlib.Path(tmp))
+    elapsed("ml-fugaku-train and ml-fugaku-36h")
     with tempfile.TemporaryDirectory(prefix="replay") as tmp:
         tmp = pathlib.Path(tmp)
         npz, wx = replay_path(card, tmp)
@@ -3149,7 +3362,7 @@ def main():
         elapsed("the sharded sweep")
         small_incentives_reference(card, tmp)
         elapsed("the small incentives reference")
-        ml_cli(card, tmp)
+        ml_cli(card, tmp, trained_ck)
         elapsed("the ML CLI")
     loaded = sorted(m for m in ("pandas", "pyarrow") if m in sys.modules)
     if loaded:
@@ -3182,13 +3395,17 @@ def main():
               f"{k}: fused_cooling {v['fused_cooling']}"
               for k, v in sharded.items()))
     print(f"ml launches: fused_cooling {ml['fused_cooling']}, group_power "
-          f"{ml['group_power']}")
+          f"{ml['group_power']}; ES training (fig10's loop): fused_cooling "
+          f"{es['fused_cooling']}, group_power {es['group_power']}")
     print(f"session launches: group_power {session['group_power']}, "
           f"fused_cooling {session['fused_cooling']}; wire launches: "
           f"group_power {wire['group_power']}, fused_cooling "
           f"{wire['fused_cooling']}")
+    # the grid sweep's rate says how fast this machine's host is: budgets
+    # scale the total by it
     print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"{time.perf_counter() - t_start:.1f} s (grid sweep "
+          f"{grid_steps_s!r} steps/s on this machine)")
     print(json.dumps({"kernels": [fused, group, *lm]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

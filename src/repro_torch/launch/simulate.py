@@ -1,5 +1,4 @@
-"""S-RAPS CLI for the PyTorch port (``repro.launch.simulate``'s surface
-but ES training).
+"""S-RAPS CLI for the PyTorch port (``repro.launch.simulate``'s surface).
 
   python -m repro_torch.launch.simulate --system marconi100 -t 61000 \
       -ff 4381000 --policy fcfs --backfill easy -o out/
@@ -67,8 +66,10 @@ ambient conditions. The manifest records each trace's content digest.
 Subcommand ``serve`` runs the twin as a persistent service
 (``repro_torch.serve.cli``, docs/serving.md); ``calibrate`` fits the
 cooling-plant parameters to recorded facility telemetry
-(``repro_torch.traces.calibrate``). The JAX CLI's ``train`` subcommand
-(ES training of the ML alpha) is not ported yet.
+(``repro_torch.traces.calibrate``); ``train`` ES-trains the ML
+scheduler's alpha over batched twin rollouts (``repro_torch.ml.train``:
+``train --smoke --device cpu`` on the CPU, ``--checkpoint`` feeds
+``--ml-alpha``).
 """
 from __future__ import annotations
 
@@ -160,10 +161,6 @@ def _failure_kwargs(args, t0):
     return kw
 
 
-# subcommands of the JAX CLI that wait for their port
-UNPORTED = {"train": "ES policy training (ROADMAP item 13)"}
-
-
 def _trace_digests(args) -> dict:
     """Content digests of the real traces feeding this run, for the
     manifest: empty when the run is fully synthetic."""
@@ -178,6 +175,13 @@ def _trace_digests(args) -> dict:
 
 def main(argv=None):
     argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv[:1] == ["train"]:
+        # policy-training subcommand (repro_torch.ml.train): ES over
+        # batched twin rollouts; everything after "train" is its own
+        # arg set
+        from repro_torch.ml import train as ml_train
+        ml_train.main(argv[1:])
+        return 0
     if argv[:1] == ["serve"]:
         # twin as a service (repro_torch.serve, docs/serving.md): a
         # persistent session with snapshot and fork over a socket
@@ -188,9 +192,6 @@ def main(argv=None):
         # (repro_torch.traces.calibrate, docs/datasets.md)
         from repro_torch.traces import calibrate as calibrate_cli
         return calibrate_cli.main(argv[1:])
-    if argv[:1] == ["train"]:
-        raise SystemExit(f"simulate {argv[0]}: {UNPORTED[argv[0]]} is not "
-                         f"ported to repro_torch yet")
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--system", default="marconi100")
     ap.add_argument("--scale", type=int, default=0,

@@ -225,6 +225,51 @@ def assert_states_equal(want, got, what=""):
             assert_exact(as_np(w), g, f"{what}{f.name}")
 
 
+# ES training (``ml.train``): a sixth of the smallest gap between distinct
+# rewards on ``SMOKE_CONFIG`` (2.95e-5), so a swap of two ranks cannot
+# hide inside it; the metrics' float tolerance
+REWARD_TOL = 5e-6
+METRIC_RTOL = 1e-5
+
+
+def assert_histories_match(want, got, upto, tol=REWARD_TOL):
+    """Two ``history`` lists (``TrainResult`` or checkpoint): the same
+    keys and generations, rewards within ``tol`` up to generation
+    ``upto`` (None: all), the mean bit for bit before it; ``wall_s`` and
+    the cache counters are not compared."""
+    assert len(want) == len(got)
+    for w, o in zip(want, got):
+        g = w["generation"]
+        assert set(w) == set(o) and o["generation"] == g
+        if upto is not None and g > upto:
+            continue
+        for k in ("reward_mu", "reward_best", "reward_baseline",
+                  "reward_pop_mean"):
+            assert abs(w[k] - o[k]) <= tol, (g, k, w[k], o[k])
+        if upto is None or g < upto:
+            assert w["mu"] == o["mu"], g
+
+
+def assert_checkpoints_match(want, got, upto, tol=REWARD_TOL):
+    """Two training checkpoints (either package's): the search settings
+    and (when the runs ranked alike throughout, ``upto`` None) the mean
+    bit for bit, the normalizers at ``METRIC_RTOL``, rewards within
+    ``tol``, the history as ``assert_histories_match`` holds it. The
+    elite is compared apart; ``wall_s`` and the cache fields are not
+    compared."""
+    assert set(want) == set(got)
+    for k in ("alpha0", "sigma", "lr", "population", "generation", "reward",
+              "seed"):
+        assert want[k] == got[k], k
+    if upto is None:
+        assert want["mu"] == got["mu"]
+    assert set(want["refs"]) == set(got["refs"])
+    for k, v in want["refs"].items():
+        assert abs(got["refs"][k] - v) <= METRIC_RTOL * abs(v), k
+    assert abs(want["best_reward"] - got["best_reward"]) <= tol
+    assert_histories_match(want["history"], got["history"], upto, tol)
+
+
 # ---------------------------------------------------------------------------
 # Guards.
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro.core import transport as jtr
 from repro.datasets import loaders as jloaders
 from repro.datasets import synthetic as jsyn
 from repro.launch import env as jenv
+from repro.launch import simulate as jcli
 from repro.launch.simulate import build_system as jbuild
 from repro.obs import recorder as jrecorder
 from repro.obs import reporter as jreporter
@@ -50,7 +51,8 @@ from repro_torch.obs import recorder as trecorder
 from repro_torch.obs import reporter as treporter
 from repro_torch.obs import schema, timing
 
-from test_torch_common import assert_states_equal, to_port, workload_pair
+from test_torch_common import (REWARD_TOL, assert_checkpoints_match,
+                               assert_states_equal, to_port, workload_pair)
 
 torch.set_num_threads(1)
 
@@ -386,10 +388,66 @@ def test_simulate_cli_profile_writes_a_chrome_trace(tmp_path, capsys):
     assert any(n and n.startswith("aten::") for n in names)
 
 
-@pytest.mark.parametrize("sub", ["train"])
-def test_simulate_cli_refuses_unported_subcommands(sub):
-    with pytest.raises(SystemExit, match="not ported"):
-        tcli.main([sub, "--smoke"])
+def test_simulate_cli_train_matches_the_reference(tmp_path, capsys):
+    """``simulate train --smoke --generations 2`` through both CLIs, with
+    ``--json``, ``--manifest`` and ``--events``: the same checkpoint (the
+    mean and the elite bit for bit, rewards within 5e-6; ``wall_s`` and
+    the cache fields aside), the same ``--json`` result, and the
+    reference's lifecycle events (``generation``, ``checkpoint``) in its
+    order, the port's cache counters at 0."""
+    runs = {}
+    for name, cli, extra in (("jax", jcli, []),
+                             ("port", tcli, ["--device", "cpu"])):
+        res = cli.main(["train", "--smoke", "--generations", "2", "--quiet",
+                        "--json", "--checkpoint",
+                        str(tmp_path / f"{name}.json"),
+                        "--manifest", str(tmp_path / f"{name}_run.json"),
+                        "--events", str(tmp_path / f"{name}.ndjson")]
+                       + extra)
+        runs[name] = SimpleNamespace(
+            res=res, doc=json.loads(capsys.readouterr().out),
+            ck=json.loads((tmp_path / f"{name}.json").read_text()),
+            manifest=json.loads((tmp_path / f"{name}_run.json").read_text()),
+            events=obs.read_frames(tmp_path / f"{name}.ndjson"))
+    want, got = runs["jax"], runs["port"]
+    assert got.res == 0
+    assert_checkpoints_match(want.ck, got.ck, None)
+    assert want.ck["best_alpha"] == got.ck["best_alpha"]
+    assert want.doc["checkpoint"].endswith("jax.json")
+    assert got.doc["checkpoint"].endswith("port.json")
+    (wt, gt) = want.doc["train"], got.doc["train"]
+    assert set(wt) == set(gt) and wt["alpha"] == gt["alpha"]
+    assert wt["generations"] == gt["generations"] == 2
+    assert wt["reward_default"] == gt["reward_default"] == -2.25
+    for k in ("reward_best", "gain"):
+        assert abs(wt[k] - gt[k]) <= REWARD_TOL, k
+    assert gt["gain"] > 0.0
+
+    def lifecycle(run):
+        return [f for f in run.events if not f["event"].startswith("span")]
+    kinds = ["run_start", "generation", "checkpoint", "generation",
+             "checkpoint", "run_end"]
+    assert [f["event"] for f in lifecycle(want)] == kinds
+    assert [f["event"] for f in lifecycle(got)] == kinds
+    for w, g in zip(lifecycle(want), lifecycle(got)):
+        assert set(w) - {"run_id"} == set(g) - {"run_id"}
+        assert w.get("generation") == g.get("generation")
+        if w["event"] == "generation":
+            assert g["cache_hits"] == g["cache_misses"] == 0
+            assert abs(w["reward_best"] - g["reward_best"]) <= REWARD_TOL
+    spans = [f["span"] for f in got.events if f["event"] == "span_start"]
+    assert spans == ["train.generation", "engine.scan"] * 2
+    wm, gm = want.manifest, got.manifest
+    assert wm["command"] == gm["command"] == "train"
+    assert wm["system"]["digest"] == gm["system"]["digest"]
+    assert wm["jobs"]["digest"] == gm["jobs"]["digest"]
+    assert set(wm["counters"]["sweep_cache"]) == \
+        set(gm["counters"]["sweep_cache"])
+    assert not any(gm["counters"]["sweep_cache"].values())
+    assert set(wm["result"]) == set(gm["result"])
+    assert gm["spans"]["spans"]["train.generation"]["count"] == 2
+    assert {k: v for k, v in gm["scenario"].items() if k != "device"} == \
+        wm["scenario"] and gm["scenario"]["device"] == "cpu"
 
 
 # ---------------------------------------------------------------------------
