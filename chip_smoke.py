@@ -117,9 +117,18 @@ through their entry points at full width and checks what comes out:
   and zamba2-7b at full width, one after another: 4 prompts of 512
   tokens and 16 greedy decode steps, whose prefills run the flash
   attention, WKV and SSD kernels, with a float32 self-check of each and
-  the bf16 prefill's logits held to the float32 prefill's;
+  the bf16 prefill's logits held to the float32 prefill's; then
+  mixtral-8x7b (8 experts top-2 in every layer) at full width, cut to 8
+  of its 32 layers (the float32 model is 186.8 GB), through
+  ``serve_lm.generate`` the same way: its float32 prefill against its
+  float32 forward, its bf16 prefill against a float32 prefill that
+  replays the bf16 routes (the dense archs' bound), ``route_topk`` on
+  bf16 logits full of exact ties and padded rows, and one MoE layer in
+  float32 with capacity binding, each on the card against the CPU (the
+  routing equal exactly);
 
-and a small card-against-CPU check of each path (with weather and
+and a small card-against-CPU check of each path (the two MoE smoke
+archs beside the three LM smoke archs; with weather and
 failures on, also of the event layer's draws; a small session too; the
 SWF fixture replayed with failures; plugin and sequential mode; the
 incentive workflow through the CLI; an ml sweep under scalar and vector
@@ -202,6 +211,7 @@ from repro_torch.ml.pipeline import (MLSchedulerModel,  # noqa: E402
                                      attach_basis, attach_scores)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import mlp as model_mlp  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models.zoo import get_api  # noqa: E402
 from repro_torch.serve import TwinSession  # noqa: E402
@@ -3012,10 +3022,13 @@ def timing(card, name, shape, kernel, plain, library, n_bytes, n_ops,
 
 def flash_phase(card):
     """Flash attention against its plain version at qwen2.5-3b's (H=16,
-    KV=2, hd=128) and zamba2-7b's (H=32 MHA, hd=112) prefill shapes,
-    serve_lm's ragged 32-token prompt, a sliding window, S < T, a row past
-    a 64-row tile (S = T = 129) and hd=64 GQA (qwen2.5-0.5b's heads).
-    bfloat16 runs the tensor-core kernel, float32 the CUDA-core one."""
+    KV=2, hd=128), zamba2-7b's (H=32 MHA, hd=112) and mixtral-8x7b's
+    (H=32, KV=8, hd=128, window 4096) prefill shapes, serve_lm's ragged
+    32-token prompt, a sliding window, mixtral's window binding (S = T =
+    8192), S < T, a row past a 64-row tile (S = T = 129) and hd=64 GQA
+    (qwen2.5-0.5b's heads). bfloat16 runs the tensor-core kernel, float32
+    the CUDA-core one."""
+    t0 = time.perf_counter()
     cases = [("qwen2.5-3b", 4, 512, 512, 16, 2, 128, 0),
              ("qwen2.5-3b prompt 32", 4, 32, 32, 16, 2, 128, 0),
              ("zamba2-7b", 4, 512, 512, 32, 32, 112, 0),
@@ -3023,7 +3036,10 @@ def flash_phase(card):
              ("window 200", 2, 512, 512, 16, 2, 128, 200),
              ("S=100 < T=300", 2, 100, 300, 8, 2, 64, 0),
              ("S=T=129", 2, 129, 129, 16, 2, 128, 0),
-             ("hd=64 GQA", 4, 512, 512, 14, 2, 64, 0)]
+             ("hd=64 GQA", 4, 512, 512, 14, 2, 64, 0),
+             ("mixtral-8x7b", 4, 512, 512, 32, 8, 128, 4096),
+             ("mixtral-8x7b window binding", 1, 8192, 8192, 32, 8, 128,
+              4096)]
     err = 0.0
     for dtype in LM_DTYPES:
         for i, (label, B, S, Tk, H, KV, hd, win) in enumerate(cases):
@@ -3036,6 +3052,10 @@ def flash_phase(card):
             print(f"kernel flash_attention {label} B={B} S={S} T={Tk} H={H} "
                   f"KV={KV} hd={hd} window={win} {dtype}: max_abs_err={e!r} "
                   f"(rtol=atol={LM_TOL['flash_attention'][dtype]})")
+            del q, k, v
+    torch.cuda.empty_cache()    # the S = T = 8192 plain version's scores
+    print(f"[{card}] flash_attention checks ({len(cases)} cases x 2 dtypes, "
+          f"mixtral's two included): {time.perf_counter() - t0!r} s")
     entry = dict(name="flash_attention", route="cuda",
                  source="src/repro_torch/kernels/flash_attention/csrc/"
                  "flash_attention_tc.cu",
@@ -3155,7 +3175,8 @@ def ssd_phase(card):
                 launches=None, max_abs_err=err, **t)
 
 # ---------------------------------------------------------------------------
-# LM serving at full width: qwen2.5-3b, rwkv6-7b, zamba2-7b.
+# LM serving at full width: qwen2.5-3b, rwkv6-7b, zamba2-7b; mixtral-8x7b
+# at full width, 8 of its 32 layers.
 # ---------------------------------------------------------------------------
 LM_ARCHS = ["qwen2.5-3b", "rwkv6-7b", "zamba2-7b"]
 # kernel launches of one prefill (the decode runs no kernel): a flash
@@ -3165,7 +3186,15 @@ LM_ARCHS = ["qwen2.5-3b", "rwkv6-7b", "zamba2-7b"]
 # nothing)
 LM_LAUNCHES = {"qwen2.5-3b": {"flash_attention_tc": 36},
                "rwkv6-7b": {"wkv_tc": 32},
-               "zamba2-7b": {"ssd": 81, "flash_attention_tc": 13}}
+               "zamba2-7b": {"ssd": 81, "flash_attention_tc": 13},
+               "mixtral-8x7b": {"flash_attention_tc": 8}}
+# mixtral-8x7b's depth cut: 32 layers are 46.70 B params, 186.8 GB in
+# float32, which no 80 GB card holds; 8 layers are 11.87 B, 47.5 GB
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 8
+MOE_SMOKE = ["mixtral-8x7b-smoke", "llama4-maverick-400b-a17b-smoke"]
+PREFILL_TOL = 2e-3   # the JAX package's prefill-vs-forward bound
+ROUTE_TOL = 1e-6     # route_topk's combine, card vs CPU (float32)
+MOE_LAYER_TOL = 1e-4  # forward_moe, card vs CPU, of the largest output
 # the launch count of each kernels-line entry of the LM path
 LM_COUNTER = {"flash_attention": "flash_attention_tc", "wkv": "wkv_tc",
               "ssd": "ssd"}
@@ -3178,7 +3207,10 @@ SELF_TOL = 4e-3      # the JAX package's recurrent-vs-parallel bound
 # with depth, far more in rwkv6 (the JAX package's bf16 path drifts as
 # much); tests/test_torch_lm_bf16.py holds the smoke widths at full
 # depth to the same bounds on the CPU.
-BF16_LOGIT_TOL = {"qwen2.5-3b": 0.05, "rwkv6-7b": 0.5, "zamba2-7b": 0.05}
+# mixtral-8x7b's float32 prefill replays the bf16 prefill's routes (every
+# token in the same experts and slots), so it drifts as a dense arch does
+BF16_LOGIT_TOL = {"qwen2.5-3b": 0.05, "rwkv6-7b": 0.5, "zamba2-7b": 0.05,
+                  "mixtral-8x7b": 0.05}
 
 def self_check(arch, api, params, prompts):
     """Whole path in float32 at full width (dtype replaced, widths and
@@ -3273,15 +3305,258 @@ def serve_path(card, entries):
         bf16_check(arch, bf16_logits, self_check(arch, api, params, prompts))
         del params, logits, bf16_logits
         torch.cuda.empty_cache()
+    for k, n in moe_serve(card).items():
+        total[k] += n
     for e in entries:
         e["launches"] = total[LM_COUNTER[e["name"]]]
     print(f"LM serving launches in all: {total}")
 
+@contextlib.contextmanager
+def recorded_routes(replay=None):
+    """Record every ``route_topk`` call's (dispatch, combine); yields the
+    list of records. With ``replay``, an earlier run's records, each call
+    returns the record of its turn instead of routing afresh (the
+    dispatch in the logits' dtype), so every token goes to the same
+    experts and slots with the same gates as in that run."""
+    calls, inner = [], model_mlp.route_topk
+
+    def spy(logits, cfg, capacity):
+        if replay is None:
+            dispatch, combine = inner(logits, cfg, capacity)
+        else:
+            dispatch, combine = replay[len(calls)]
+            if tuple(dispatch.shape) != (*logits.shape, capacity):
+                raise SystemExit(f"replayed dispatch {tuple(dispatch.shape)}"
+                                 f" does not fit logits "
+                                 f"{tuple(logits.shape)}, capacity "
+                                 f"{capacity}")
+            dispatch = dispatch.to(logits.dtype)
+        calls.append((dispatch, combine))
+        return dispatch, combine
+    model_mlp.route_topk = spy
+    try:
+        yield calls
+    finally:
+        model_mlp.route_topk = inner
+
+def token_routes(calls, B, S):
+    """Per layer, the experts each of the B x S real tokens is kept in:
+    bool [layers, B, S, E]."""
+    kept = [d.sum(-1) > 0 for d, _ in calls]
+    return torch.stack([k.reshape(-1, k.shape[-1])[:B * S].reshape(B, S, -1)
+                        for k in kept])
+
+def tied_routes_check(card, cfg):
+    """route_topk on bf16 logits full of exact ties, card against the
+    CPU: two groups of moe_group tokens whose logits take 7 levels over
+    the 8 experts (every row ties somewhere), expert 0 raised by one in
+    group 0 so that capacity binds, and group 1's second half all zero,
+    as forward_moe's padded tokens are (uniform probabilities: experts
+    0..k-1 by the tie order, their slot-0 positions ahead of the real
+    tokens' slot-1). The dispatch must be equal, the combine within
+    ROUTE_TOL."""
+    sg, E, k = cfg.moe_group, cfg.n_experts, cfg.top_k
+    g = torch.Generator().manual_seed(11)
+    logits = 0.5 * torch.randint(-3, 4, (2, sg, E), generator=g).float()
+    logits[0, :, 0] += 1.0
+    logits[1, sg // 2:] = 0.0
+    logits = logits.to(torch.bfloat16)
+    cap = model_mlp._capacity(cfg, sg)
+    d_cpu, c_cpu = model_mlp.route_topk(logits, cfg, cap)
+    d_dev, c_dev = model_mlp.route_topk(logits.to(DEV), cfg, cap)
+    torch.cuda.synchronize()
+    if not torch.equal(d_dev.cpu(), d_cpu):
+        raise SystemExit(f"{cfg.name}: route_topk's dispatch on bf16 ties "
+                         f"differs card vs CPU at "
+                         f"{int((d_dev.cpu() != d_cpu).sum())} entries")
+    c_err = close(f"{cfg.name} route_topk combine on bf16 ties", c_dev.cpu(),
+                  c_cpu, ROUTE_TOL)
+    srt = torch.sort(logits.float(), -1, descending=True)[0]
+    at_edge = int((srt[..., k - 1] == srt[..., k]).sum())
+    flat = int((srt[..., 0] == srt[..., -1]).sum())
+    dropped = (k - d_cpu.sum((-2, -1))).sum(-1).tolist()
+    print(f"[{card}] {cfg.name} route_topk on bf16 logits with exact ties "
+          f"(2 groups of {sg}, capacity {cap}), card vs CPU: dispatch equal, "
+          f"combine max_abs_err={c_err!r} (tol {ROUTE_TOL}); rows whose "
+          f"top-{k} edge is a tie {at_edge} of {2 * sg}, all-equal (padded) "
+          f"rows {flat}; (token, slot) assignments dropped per group "
+          f"{dropped}")
+    if at_edge == 0 or flat == 0 or min(dropped) <= 0:
+        raise SystemExit(f"{cfg.name}: the tied logits missed ties at the "
+                         f"edge, padded rows or drops")
+
+def moe_layer_check(card, cfg, lp):
+    """Check (b): one full-width MoE layer (layer 0's experts) in float32
+    on one group of moe_group tokens, card against the CPU, with router
+    column 0 skewed (+1 on its logit) so that capacity binds: route_topk
+    on the same logits (dispatch equal, combine within ROUTE_TOL), then
+    forward_moe (within MOE_LAYER_TOL of the largest output)."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    D, sg = cfg.d_model, cfg.moe_group
+    g = gen(7)
+    x = torch.randn((1, sg, D), generator=g, device=DEV) + 0.5
+    p = {k: v.clone() if k == "router" else v for k, v in lp.items()}
+    p["router"][:, 0] += 1.0 / (0.5 * D)
+    t = time.perf_counter()
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    x_cpu = x.cpu()
+    copy_s = time.perf_counter() - t
+    logits = x_cpu @ p_cpu["router"]
+    cap = model_mlp._capacity(cfg, sg)
+    d_cpu, c_cpu = model_mlp.route_topk(logits, cfg32, cap)
+    d_dev, c_dev = model_mlp.route_topk(logits.to(DEV), cfg32, cap)
+    torch.cuda.synchronize()
+    if not torch.equal(d_dev.cpu(), d_cpu):
+        raise SystemExit(f"{cfg.name}: route_topk's dispatch on the card "
+                         f"differs from the CPU's at "
+                         f"{int((d_dev.cpu() != d_cpu).sum())} entries")
+    c_err = close(f"{cfg.name} route_topk combine", c_dev.cpu(), c_cpu,
+                  ROUTE_TOL)
+    dropped = sg * cfg.top_k - int(d_cpu.sum())
+    probs = torch.sort(torch.softmax(logits, -1), -1, descending=True)[0]
+    margin = float((probs[..., cfg.top_k - 1] - probs[..., cfg.top_k]).min())
+    out = model_mlp.forward_moe(p, x, cfg32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = model_mlp.forward_moe(p_cpu, x_cpu, cfg32)
+    host_s = time.perf_counter() - t
+    top = float(want.abs().max())
+    err = float((out.cpu() - want).abs().max())
+    if tuple(out.shape) != tuple(want.shape) or not \
+            torch.isfinite(out).all() or not err <= MOE_LAYER_TOL * top:
+        raise SystemExit(f"{cfg.name}: forward_moe on the card is {err!r} "
+                         f"from the CPU's, over {MOE_LAYER_TOL} of the "
+                         f"largest output {top!r}")
+    flops = 3 * 2 * cfg.n_experts * cap * D * cfg.d_ff
+    print(f"[{card}] {cfg.name} one MoE layer at full width (D {D}, F "
+          f"{cfg.d_ff}, {cfg.n_experts} experts top-{cfg.top_k}, one group "
+          f"of {sg}, capacity {cap}), float32, card vs CPU: dispatch equal, "
+          f"combine max_abs_err={c_err!r} (tol {ROUTE_TOL}); {dropped} of "
+          f"{sg * cfg.top_k} (token, slot) assignments dropped at capacity "
+          f"(expert loads {d_cpu.sum((0, 1, 3)).tolist()}); smallest top-"
+          f"{cfg.top_k} margin {margin!r}; forward_moe max_abs_err={err!r} "
+          f"= {err / top!r} of the largest output {top!r} (tol "
+          f"{MOE_LAYER_TOL}); the CPU's layer {host_s!r} s for "
+          f"{flops / 1e12!r} TFLOP of expert products, the weights' copy "
+          f"{copy_s!r} s")
+    if dropped <= 0:
+        raise SystemExit(f"{cfg.name}: the skewed group dropped nothing")
+
+def moe_serve(card):
+    """mixtral-8x7b at full width, depth cut to MOE_LAYERS: the counted
+    serving run through ``serve_lm.generate`` (bf16, 4 x 512 tokens, 16
+    greedy steps; check (d): finite logits, tokens in range), prefill time,
+    decode rate and peak memory; (a) float32 prefill against float32
+    forward; (c) bf16 prefill against a float32 prefill that replays the
+    bf16 routes, with the tokens float32 would route otherwise counted;
+    (b) route_topk on bf16 ties and one MoE layer, card against CPU.
+    Returns the counted run's launches."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    full = get_config(MOE_ARCH)
+    api = get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(gen(0), DEV)
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen(1), device=DEV)
+    (toks, logits, dec_s), wall, launches = run_counted(
+        lambda: serve_lm.generate(api, params, prompts, LM_GEN))
+    want = {k: LM_LAUNCHES[MOE_ARCH].get(k, 0) for k in kernels.LAUNCHES}
+    if launches != want:
+        raise SystemExit(f"{MOE_ARCH}: one prefill launched {launches}, "
+                         f"want {want}")
+    if tuple(logits.shape) != (LM_BATCH, LM_GEN + 1, cfg.vocab) or \
+            not torch.isfinite(logits).all() or \
+            tuple(toks.shape) != (LM_BATCH, LM_GEN) or \
+            not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise SystemExit(f"{MOE_ARCH}: decode logits {tuple(logits.shape)} "
+                         f"not finite or tokens {tuple(toks.shape)} out of "
+                         f"range")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        api.prefill(params, {"tokens": prompts}, LM_PROMPT + LM_GEN)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    with recorded_routes() as bf16_calls:
+        bf16_logits = api.prefill(params, {"tokens": prompts},
+                                  LM_PROMPT + LM_GEN)[0]
+    bf16_routes = token_routes(bf16_calls, LM_BATCH, LM_PROMPT)
+    prefill_ms = 1e3 * sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kept = bf16_routes.sum(-1)                       # [layers, B, S]
+    dropped = (cfg.top_k - kept).sum((1, 2)).tolist()
+    print(f"[{card}] {MOE_ARCH} ({cfg.param_count / 1e9:.2f} B params f32, "
+          f"{MOE_LAYERS} of {full.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}) batch {LM_BATCH} x "
+          f"prompt {LM_PROMPT}: launches {launches}; prefill {prefill_ms!r} "
+          f"ms ({LM_BATCH * LM_PROMPT / (prefill_ms / 1e3)!r} tok/s); decode "
+          f"{LM_GEN} steps {dec_s!r} s = {LM_BATCH * LM_GEN / dec_s!r} "
+          f"tok/s; peak memory serving {peak!r} GiB (the init's "
+          f"{init_peak!r} GiB: a stacked expert leaf is drawn, then "
+          f"scaled into a copy); counted run {wall!r} s; (token, "
+          f"slot) assignments dropped at capacity in the bf16 prefill, per "
+          f"layer: {dropped} of {LM_BATCH * LM_PROMPT * cfg.top_k}; sample "
+          f"{toks[0][:8].tolist()}")
+    # (a) float32 prefill against float32 forward: the same groups
+    api32 = get_api(dataclasses.replace(cfg, dtype=torch.float32))
+    with recorded_routes() as calls:
+        f32_logits = api32.prefill(params, {"tokens": prompts},
+                                   LM_PROMPT + LM_GEN)[0]
+    f32_routes = token_routes(calls, LM_BATCH, LM_PROMPT)
+    with recorded_routes() as calls:
+        fwd = api32.forward(params, {"tokens": prompts})[:, -1]
+    fwd_routes = token_routes(calls, LM_BATCH, LM_PROMPT)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(f32_logits).all() and torch.isfinite(fwd).all()):
+        raise SystemExit(f"{MOE_ARCH}: float32 logits not finite")
+    torch.testing.assert_close(f32_logits, fwd, rtol=PREFILL_TOL,
+                               atol=PREFILL_TOL,
+                               msg=lambda m: f"{MOE_ARCH} (a): {m}")
+    other = int((f32_routes != fwd_routes).any(-1).sum())
+    print(f"{MOE_ARCH} (a): float32 prefill's last logits vs float32 "
+          f"forward's last position: max_abs_err="
+          f"{float((f32_logits - fwd).abs().max())!r} (rtol=atol="
+          f"{PREFILL_TOL}; logits up to {float(fwd.abs().max())!r}); "
+          f"(token, layer) pairs routed otherwise: {other}")
+    del fwd
+    # (c) bf16 prefill against a float32 prefill that replays its routes
+    with recorded_routes(replay=bf16_calls) as calls:
+        replayed = api32.prefill(params, {"tokens": prompts},
+                                 LM_PROMPT + LM_GEN)[0]
+    if len(calls) != len(bf16_calls):
+        raise SystemExit(f"{MOE_ARCH}: the replayed prefill routed "
+                         f"{len(calls)} times, the bf16 one "
+                         f"{len(bf16_calls)}")
+    differ = (bf16_routes != f32_routes).any(-1)          # [layers, B, S]
+    rows = ((bf16_logits.float() - replayed).abs().amax(-1) /
+            replayed.abs().max()).tolist()
+    print(f"{MOE_ARCH} (c): the float32 prefill replays the bf16 prefill's "
+          f"dispatch and combine at every layer; routed afresh, float32 "
+          f"sends {differ.sum((1, 2)).tolist()} of {LM_BATCH * LM_PROMPT} "
+          f"tokens a layer to other experts (the last token, in rows "
+          f"{torch.nonzero(differ[:, :, -1].any(0)).flatten().tolist()}); "
+          f"max |bf16 - f32| / max |f32| per row {rows}")
+    bf16_check(MOE_ARCH, bf16_logits, replayed)
+    del bf16_logits, f32_logits, replayed, logits, bf16_calls, calls
+    # (b) route_topk on bf16 ties and one MoE layer, card against the CPU
+    tied_routes_check(card, cfg)
+    moe_layer_check(card, cfg, model_common.layer(
+        params["blocks"]["layers"][0], 0)["mlp"])
+    del params
+    torch.cuda.empty_cache()
+    print(f"[{card}] {MOE_ARCH}: serving phase {time.perf_counter() - t0!r} s")
+    return launches
+
 def small_lm_reference():
-    """Each smoke arch on the card against the CPU: the same weights
-    (drawn on the CPU, copied over), the CPU's greedy tokens fed to both
-    (teacher forcing), prefill and every decode step's logits at 1e-4."""
-    for arch in serve_lm.ARCHS:
+    """Each smoke arch (the MoE ones too) on the card against the CPU: the
+    same weights (drawn on the CPU, copied over), the CPU's greedy tokens
+    fed to both (teacher forcing), prefill and every decode step's logits
+    at 1e-4."""
+    for arch in serve_lm.ARCHS + MOE_SMOKE:
         api = get_api(get_config(arch))
         params = api.init(torch.Generator().manual_seed(0), "cpu")
         prompts = torch.randint(0, api.cfg.vocab, (4, 32),

@@ -1,7 +1,8 @@
 """Serving an LM of the zoo: batched prefill, then greedy token-by-token
 decode with the KV / recurrent caches; the port of
-``examples/serve_lm.py`` for the dense GQA transformer, the attention-free
-RWKV6 and the Mamba2 + shared-attention Zamba2 families.
+``examples/serve_lm.py`` for the dense GQA transformer, its MoE variants
+(mixtral, llama4), the attention-free RWKV6 and the Mamba2 +
+shared-attention Zamba2 families.
 
     python -m repro_torch.launch.serve_lm                  # the three smoke archs, on the card
     python -m repro_torch.launch.serve_lm --arch qwen2.5-3b-smoke --device cpu

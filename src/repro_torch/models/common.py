@@ -116,7 +116,7 @@ def unported(what: str) -> NotImplementedError:
     reached yet raises."""
     return NotImplementedError(
         f"repro_torch: {what} is not ported yet; it waits for a later "
-        f"slice of the port (ROADMAP queue 1, item 15: MoE, encdec, vlm, "
+        f"slice of the port (ROADMAP queue 1, item 15: encdec, vlm, "
         f"training)")
 
 
@@ -129,17 +129,24 @@ def param(gen, shape, dtype, device, scale: float | None = None,
     normal x ``1/sqrt(fan_in)`` (or ``scale``), or zeros / ones. ``stack``
     > 0 prepends a layer axis of that length; ``fan_in`` is the per-layer
     shape's, as under the JAX package's ``vmap``. On the ``meta`` device
-    only the shape and dtype are made (``gen`` may be None)."""
+    only the shape and dtype are made (``gen`` may be None).
+
+    The reference's default scale is a numpy float64, which JAX (without
+    x64) promotes a bfloat16 draw by: such a leaf comes out float32, while
+    zeros, ones and a Python-float ``scale`` keep ``dtype``."""
     full = ((stack,) if stack else ()) + tuple(shape)
     if init == "zeros":
         return torch.zeros(full, dtype=dtype, device=device)
     if init == "ones":
         return torch.ones(full, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    out = dtype if scale is not None else \
+        torch.promote_types(dtype, torch.float32)
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     if torch.device(device).type == "meta":
-        return torch.empty(full, dtype=dtype, device=device)
-    return torch.randn(full, generator=gen, dtype=dtype, device=device) * s
+        return torch.empty(full, dtype=out, device=device)
+    return torch.randn(full, generator=gen, dtype=dtype,
+                       device=device).to(out) * s
 
 
 def layer(tree, i: int):

@@ -7,8 +7,8 @@ families (the port of ``repro.models.zoo`` for serving).
     logits, state = api.prefill(params, batch, max_len)
     logits, state = api.decode(params, tokens, state)
 
-``dense`` runs ``transformer``, ``ssm`` runs ``rwkv6`` and ``hybrid``
-runs ``mamba2``; ``moe``, ``encdec`` and ``vlm`` wait for a later slice.
+``dense`` and ``moe`` run ``transformer``, ``ssm`` runs ``rwkv6`` and
+``hybrid`` runs ``mamba2``; ``encdec`` and ``vlm`` wait for a later slice.
 ``from_arrays`` carries the JAX package's parameters over.
 """
 from __future__ import annotations
@@ -22,7 +22,8 @@ import torch
 from repro_torch.models import mamba2, rwkv6, transformer
 from repro_torch.models.common import ArchConfig, unported
 
-_FAMILY_MODULE = {"dense": transformer, "ssm": rwkv6, "hybrid": mamba2}
+_FAMILY_MODULE = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
+                  "hybrid": mamba2}
 
 
 @dataclass
@@ -49,7 +50,7 @@ class ModelAPI:
         position at ``max_len - 1`` (cache almost full), as the JAX
         package's default."""
         pos = max_len - 1
-        if self.cfg.family == "dense":
+        if self.cfg.family in ("dense", "moe"):
             caches = transformer.init_cache(self.cfg, batch, max_len, device)
             return transformer.DecodeState(caches, pos)
         state = self.mod.init_cache(self.cfg, batch, max_len, device)

@@ -1,8 +1,9 @@
 """Parity of the port's LM serving path (``repro_torch.models``,
 ``repro_torch.launch.serve_lm``) with the JAX package, on the ``-smoke``
-configs of the three ported families: qwen2.5-3b (dense GQA with QKV
-bias), rwkv6-7b (attention-free) and zamba2-7b (Mamba2 + shared
-attention).
+configs of the four ported families: qwen2.5-3b (dense GQA with QKV
+bias), rwkv6-7b (attention-free), zamba2-7b (Mamba2 + shared attention),
+mixtral-8x7b (every layer MoE, top-2) and llama4-maverick (blocks of a
+dense and an MoE layer, top-1).
 
 Weights come from the JAX package's init and are carried over with
 ``from_arrays``; tokens are made with numpy. On the CPU the port's
@@ -32,14 +33,14 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import common as tC
 from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import mlp as tmlp
-from repro_torch.models import transformer as ttfm
 from repro_torch.models import zoo as tzoo
 
 from test_torch_common import as_np
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2.5-3b-smoke", "rwkv6-7b-smoke", "zamba2-7b-smoke"]
+ARCHS = ["qwen2.5-3b-smoke", "rwkv6-7b-smoke", "zamba2-7b-smoke",
+         "mixtral-8x7b-smoke", "llama4-maverick-400b-a17b-smoke"]
 B, S, MAX_LEN, STEPS = 2, 32, 48, 8
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
@@ -216,8 +217,14 @@ def test_port_prefill_matches_its_forward(family):
 def test_port_recurrent_decode_matches_teacher_forcing(family):
     """Prefilling one token and decoding the rest token by token
     reproduces the forward logits (tests/test_archs_smoke.py:79; here for
-    all three families)."""
+    the dense, ssm and hybrid families)."""
     name, _, api, params, tokens = family
+    if api.cfg.family == "moe":
+        pytest.skip("an MoE model routes a decode token in a group of B "
+                    "tokens and a forward token in a group of moe_group: "
+                    "capacity differs, so the identity does not hold (the "
+                    "reference holds it only for ssm and hybrid, "
+                    "tests/test_archs_smoke.py:78)")
     toks = tokens[:1, :8]
     full = api.forward(params, {"tokens": toks})
     lg, state = api.prefill(params, {"tokens": toks[:, :1]}, 16)
@@ -288,18 +295,11 @@ def test_from_arrays_round_trips_every_leaf(name):
 
 
 @pytest.mark.parametrize("name,family", [
-    ("mixtral-8x7b-smoke", "moe"), ("llama4-maverick-400b-a17b", "moe"),
     ("seamless-m4t-large-v2-smoke", "encdec"),
     ("internvl2-1b-smoke", "vlm")])
 def test_unported_families_raise(name, family):
-    cfg = treg.get_config(name)
     with pytest.raises(NotImplementedError, match=f"{family}.*later slice"):
-        tzoo.get_api(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttfm.init(None, dataclasses.replace(
-            treg.get_config("qwen2.5-3b-smoke"), n_experts=4), "meta")
-    with pytest.raises(NotImplementedError, match="MoE.*later slice"):
-        tmlp.forward_moe({}, None, cfg)
+        tzoo.get_api(treg.get_config(name))
 
 
 def test_lm_entry_points_raise_without_a_card_unless_cpu(capsys):
@@ -321,3 +321,15 @@ def test_serve_lm_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "zamba2-7b-smoke" in out and "qwen2.5-3b-smoke" in out
     assert out.count("tok/s") == 2 and "(4, 16)" in out
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke",
+                                  "llama4-maverick-400b-a17b-smoke"])
+def test_serve_lm_serves_the_moe_smoke_archs_on_the_cpu(arch, capsys):
+    """``serve`` takes the MoE configs unchanged (``ARCHS`` stays the
+    JAX example's three, which name no MoE arch)."""
+    assert arch not in serve_lm.ARCHS
+    toks = serve_lm.serve(arch, batch=3, prompt_len=30, gen=4, device="cpu")
+    assert toks.shape == (3, 4) and toks.dtype == np.int64
+    assert ((toks >= 0) & (toks < 512)).all()
+    assert arch in capsys.readouterr().out
